@@ -26,11 +26,33 @@ when every phase passed:
      operations over 67 TFLOP/s float32); the forward in ms per batch and
      scenes/s (host clock around synchronised calls); peak memory; a
      torch.profiler breakdown of one forward.
+  7. fused eval forward: ModelConfig(fused_sa=True), the same seed, weights
+     and scenes: 4 fused_mlp_pool calls (sa1-sa4; vote_aggregation's 288
+     wide chain stays unfused), sa1-4 and fp2 features within tolerance of
+     phase 3's forward, every key finite, vote_aggregation FPS picks that
+     moved counted; ms/batch and peak memory of both routes in turns.
+  8. train step: the supervised step (omni_pq_torch.train) at full width on
+     B=3 labeled scenes, the same initial weights through fused_sa=False and
+     fused_sa=True, 3 steps each: finite losses, the first step's total_loss
+     and grad_norm of the two routes within tolerance, the ball-query-group
+     backward's gradient into vote_xyz non-zero, 4 train-mode fused calls a
+     fused step; warmed ms/step, peak memory and a torch.profiler top-ops
+     line of one step for each route.
+  9. the fused kernel against its plain version on phases 7 and 8's own
+     inputs at every fused shape: eval mode at B=16, train mode at B=3
+     (pooled output and batch statistics).
+ 10. times of the fused kernel and its plain version (the cuBLAS GEMM +
+     elementwise chain that fused_sa=False runs) per shape and mode, with
+     the bound (one chain's operations; a train-mode call runs L+1 passes),
+     and the idx-only ball_query at phase 5's five shapes.
 The second-last line is the kernels JSON, the last the device JSON. Details
-go to chiprun_out/chip_smoke.json and chiprun_out/chip_smoke_profile.txt.
+go to chiprun_out/chip_smoke.json, chiprun_out/chip_smoke_profile.txt and
+chiprun_out/chip_smoke_train_profile.txt.
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -43,11 +65,29 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 B = 16                 # the reference's eval batch
+TRAIN_B = 3            # the reference's train batch (--batch_size 3)
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 FPS_OPS_PER_POINT = 10      # 3 sub, 3 mul, 2 add, 1 min, 1 compare
 BQ_OPS_PER_POINT = 9        # 3 sub, 3 mul, 2 add, 1 compare
+# fused SA-MLP vs its plain version: products summed in another order
+FUSED_TOL = dict(rtol=1e-4, atol=1e-4)       # pooled output, batch means
+FUSED_VAR_TOL = dict(rtol=1e-4, atol=1e-5)   # batch variances
+# the fused route against the unfused one, end to end
+ROUTE_FEATURE_TOL = dict(rtol=1e-4, atol=1e-4)  # sa1-4, fp2 (eval forward)
+# train mode, the backbone alone (no discrete decision downstream):
+# features, and gradients relative to the global gradient norm
+ROUTE_TRAIN_FEATURE_TOL = dict(rtol=1e-3, atol=1e-3)
+ROUTE_TRAIN_GRAD_TOL = 1e-3
+# the whole first step: train-mode BatchNorm amplifies the routes' float32
+# noise in vote_xyz to ~1.6e-4, which moves some of vote_aggregation's FPS
+# picks (counted and printed), and a moved cluster changes the loss terms
+# it feeds. Measured on the H100, the same in every run: 21 picks moved,
+# total_loss 0.17 % and grad_norm 6.6 % apart. These bounds only catch a
+# gross fault (a lost or doubled loss term); the backbone probe above is
+# what holds the fused route's gradients.
+ROUTE_STEP_RTOL = {"total_loss": 2e-2, "grad_norm": 0.3}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -94,6 +134,373 @@ def bound_ms(nbytes: float, nops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_violation(got, want, rtol, atol):
+    """(largest |got - want|, whether every element is within
+    atol + rtol * |want|)."""
+    d = (got.double() - want.double()).abs()
+    ok = bool((d <= atol + rtol * want.double().abs()).all())
+    return float(d.max()) if d.numel() else 0.0, ok
+
+
+def chain_flops(rows: int, chans) -> int:
+    """Operations of one Dense chain over `rows` rows (2 a multiply-add)."""
+    return 2 * rows * sum(a * b for a, b in zip(chans[:-1], chans[1:]))
+
+
+def fused_launch_counts(counted) -> dict:
+    return {name: fn.launches for name, fn in counted.items()}
+
+
+def reset_launch_counts(counted) -> None:
+    for fn in counted.values():
+        fn.launches = 0
+
+
+def record_fused_calls(ops, records):
+    """Route the models' ops.fused_mlp_pool through a recorder that keeps
+    each call's inputs (detached) and calls the real op; returns a function
+    that puts the real op back."""
+    real = ops.fused_mlp_pool
+
+    def recorder(grouped, weights, scales, biases, ra_means=(), ra_vars=(),
+                 *, train, eps=1e-5):
+        # clones: the optimiser updates the parameters in place afterwards
+        records.append(dict(
+            grouped=grouped.detach(),
+            weights=[w.detach().clone() for w in weights],
+            scales=[t.detach().clone() for t in scales],
+            biases=[t.detach().clone() for t in biases],
+            ra_means=[t.detach().clone() for t in ra_means],
+            ra_vars=[t.detach().clone() for t in ra_vars], train=train,
+            eps=eps))
+        return real(grouped, weights, scales, biases, ra_means, ra_vars,
+                    train=train, eps=eps)
+
+    ops.fused_mlp_pool = recorder
+
+    def restore():
+        ops.fused_mlp_pool = real
+    return restore
+
+
+def fused_forward_phase(cfg, pc, model, ep, counted, card):
+    """Phase 7: the fused_sa=True eval forward beside phase 3's."""
+    import torch
+    from omni_pq_torch import ops
+    from omni_pq_torch.infer import build_model, eval_forward
+    dev = pc.device
+    model_f = build_model(dataclasses.replace(cfg, fused_sa=True), dev,
+                          seed=SEED)
+    fused_layers = [n for n, m in model_f.named_modules()
+                    if getattr(m, "fused", False)]
+    check(fused_layers == [f"backbone.sa{i}" for i in range(1, 5)],
+          f"fused SA layers {fused_layers}, expected backbone.sa1-sa4")
+    eval_forward(model_f, pc)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts(counted)
+    ep_f = eval_forward(model_f, pc)
+    torch.cuda.synchronize()
+    launches = fused_launch_counts(counted)
+    peak_f = torch.cuda.max_memory_allocated(dev)
+    print(f"[fused] launches in one fused forward: {launches}")
+    check(launches == {"fps": 6, "ball_query_group": 5, "fused_mlp_pool": 4},
+          f"expected 6 fps + 5 ball_query_group + 4 fused_mlp_pool "
+          f"launches, got {launches}")
+    check(set(ep_f) == set(ep), "fused forward: other end_points keys")
+    feats = ["sa1_features", "sa2_features", "sa3_features", "sa4_features",
+             "fp2_features"]
+    diffs = {}
+    for k, v in ep_f.items():
+        if v.dtype.is_floating_point:
+            check(bool(torch.isfinite(v).all()), f"fused {k} not finite")
+        diffs[k] = float((v.double() - ep[k].double()).abs().max())
+    for k in feats:
+        worst, ok = max_violation(ep_f[k], ep[k], **ROUTE_FEATURE_TOL)
+        check(ok, f"fused forward {k}: |diff| {worst} outside "
+                  f"{ROUTE_FEATURE_TOL} of the unfused forward")
+    rest = max(((v, k) for k, v in diffs.items() if k not in feats))
+    picks = ops.fps(ep["vote_xyz"], cfg.num_proposal)
+    picks_f = ops.fps(ep_f["vote_xyz"], cfg.num_proposal)
+    moved = int((picks != picks_f).sum())
+    print(f"[fused] sa1-4/fp2 features within {ROUTE_FEATURE_TOL} of the "
+          f"unfused forward (largest |diff| "
+          f"{max(diffs[k] for k in feats):.3e}); all {len(ep_f)} keys "
+          f"finite, largest |diff| elsewhere {rest[0]:.3e} ({rest[1]}); "
+          f"vote_aggregation FPS picks that moved: {moved} of "
+          f"{picks.numel()}")
+    # ms/batch of both routes in turns: unfused, fused, fused, unfused
+    times = {"unfused": [], "fused": []}
+    for route in ("unfused", "fused", "fused", "unfused"):
+        m = model if route == "unfused" else model_f
+        times[route].append(wall_ms_per_call(lambda: eval_forward(m, pc),
+                                             reps=5))
+    print(f"[fused] forward B={B}: unfused {times['unfused']} ms, fused "
+          f"{times['fused']} ms per batch; peak memory fused "
+          f"{peak_f / 2**30:.2f} GiB [{card}]")
+    records = []
+    restore = record_fused_calls(ops, records)
+    try:
+        eval_forward(model_f, pc)
+    finally:
+        restore()
+    return dict(launches=launches, feature_max_abs_diff={
+        k: diffs[k] for k in feats}, other_max_abs_diff=rest,
+        vote_aggregation_fps_moved=moved, forward_ms=times,
+        peak_mem_bytes=peak_f), records
+
+
+def route_probe(cfg, labeled, fused: bool):
+    """A train-mode forward of fresh seeded weights with the step's dropout
+    generator, and the gradients of a fixed linear functional of the
+    backbone's features (sa1-4, fp2) w.r.t. the backbone's parameters."""
+    import torch
+    from omni_pq_torch.infer import build_model
+    dev = labeled["point_clouds"].device
+    model = build_model(dataclasses.replace(cfg, fused_sa=fused), dev,
+                        seed=SEED).train()
+    ep = model(labeled["point_clouds"],
+               generator=torch.Generator(dev).manual_seed(SEED))
+    feats = ["sa1_features", "sa2_features", "sa3_features", "sa4_features",
+             "fp2_features"]
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    probe = sum((ep[k] * torch.randn(ep[k].shape, generator=gen,
+                                     device=dev)).sum() for k in feats)
+    probe.backward()
+    return ({k: ep[k].detach() for k in feats + ["vote_xyz"]},
+            {n: p.grad.detach() for n, p in model.backbone.named_parameters()})
+
+
+def train_phase(cfg, dev, counted, card):
+    """Phase 8: the supervised train step on both routes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from omni_pq_torch import ops
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.data import make_batch
+    from omni_pq_torch.infer import build_model
+    # the module (the package's `ball_query` name is the function)
+    bq_module = importlib.import_module("omni_pq_torch.ops.ball_query")
+    from omni_pq_torch.train import (OptimizerConfig, batch_to_tensors,
+                                     TrainState, make_train_step)
+    labeled = batch_to_tensors(
+        make_batch(np.random.default_rng(SEED), TRAIN_B, cfg.num_points), dev)
+    real_bwd = bq_module.ball_query_group_backward
+    routes, records = {}, []
+    for route in ("unfused", "fused"):
+        model = build_model(dataclasses.replace(cfg, fused_sa=route == "fused"),
+                            dev, seed=SEED)
+        state = TrainState(model, OptimizerConfig())
+        step = make_train_step(model, model.cfg, SCANNET_MEAN_SIZES)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        bwd_norms = []
+
+        def spy(idx, g, n):
+            dxyz, dnew = real_bwd(idx, g, n)
+            bwd_norms.append(dxyz.norm())
+            return dxyz, dnew
+        stats, peak = [], 0
+        for i in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            if i == 0:
+                reset_launch_counts(counted)
+                bq_module.ball_query_group_backward = spy
+                restore = (record_fused_calls(ops, records)
+                           if route == "fused" else (lambda: None))
+            try:
+                st = step(state, labeled, generator=gen)
+                torch.cuda.synchronize()
+            finally:
+                if i == 0:
+                    bq_module.ball_query_group_backward = real_bwd
+                    restore()
+            if i == 0:
+                launches = fused_launch_counts(counted)
+            else:
+                peak = max(peak, torch.cuda.max_memory_allocated(dev))
+            stats.append({k: float(v) for k, v in st.items()})
+            check(all(np.isfinite(v) for v in stats[-1].values()),
+                  f"{route} step {i + 1}: non-finite stats")
+        want = {"fps": 6, "ball_query_group": 5,
+                "fused_mlp_pool": 4 if route == "fused" else 0}
+        check(launches == want, f"{route} train step launches {launches}, "
+                                f"expected {want}")
+        check(len(bwd_norms) > 0 and all(float(v) > 0 for v in bwd_norms),
+              f"{route}: the ball-query-group backward did not run or gave "
+              f"no gradient into vote_xyz ({bwd_norms})")
+        routes[route] = dict(model=model, state=state, step=step, gen=gen,
+                             stats=stats, launches=launches, peak=peak,
+                             bqg_backward_dxyz_norm=[float(v)
+                                                     for v in bwd_norms])
+        print(f"[train] {route}: step launches {launches}; "
+              f"total_loss {[round(s['total_loss'], 4) for s in stats]} "
+              f"grad_norm {[round(s['grad_norm'], 3) for s in stats]}; "
+              f"ball-query-group backward |d vote_xyz| "
+              f"{routes[route]['bqg_backward_dxyz_norm']}")
+    # the two routes' train-mode backbone, forward and backward
+    (ep_u, g_u), (ep_f, g_f) = (route_probe(cfg, labeled, False),
+                                route_probe(cfg, labeled, True))
+    probe = {}
+    for k in ep_u:
+        if k == "vote_xyz":
+            continue
+        worst, ok = max_violation(ep_f[k], ep_u[k], **ROUTE_TRAIN_FEATURE_TOL)
+        check(ok, f"train-mode {k}: fused vs unfused |diff| {worst}")
+        probe[k] = worst
+    norm = float(torch.sqrt(sum((g * g).sum() for g in g_u.values())))
+    grad_gap = max(float((g_f[n] - g_u[n]).abs().max()) for n in g_u) / norm
+    check(grad_gap <= ROUTE_TRAIN_GRAD_TOL,
+          f"train-mode backbone gradients: fused vs unfused "
+          f"{grad_gap:.2e} of the gradient norm")
+    picks = ops.fps(ep_u["vote_xyz"], cfg.num_proposal)
+    moved = int((picks != ops.fps(ep_f["vote_xyz"], cfg.num_proposal)).sum())
+    vote_gap = float((ep_f["vote_xyz"] - ep_u["vote_xyz"]).abs().max())
+    print(f"[train] train-mode backbone, fused vs unfused: features within "
+          f"{ROUTE_TRAIN_FEATURE_TOL} (largest |diff| {max(probe.values()):.3e}"
+          f"), backbone gradients {grad_gap:.2e} of their norm; vote_xyz "
+          f"|diff| {vote_gap:.2e}, vote_aggregation FPS picks that moved: "
+          f"{moved} of {picks.numel()}")
+    del ep_u, ep_f, g_u, g_f
+    first = {k: (routes["unfused"]["stats"][0][k],
+                 routes["fused"]["stats"][0][k])
+             for k in ("total_loss", "grad_norm")}
+    for k, (a, b) in first.items():
+        check(abs(a - b) <= ROUTE_STEP_RTOL[k] * abs(a),
+              f"first step {k}: unfused {a} vs fused {b}, more than "
+              f"{ROUTE_STEP_RTOL[k]} apart")
+    print(f"[train] first step, unfused vs fused: " + ", ".join(
+        f"{k} {a} vs {b} (rel {abs(a - b) / abs(a):.2e}, tolerance "
+        f"{ROUTE_STEP_RTOL[k]})" for k, (a, b) in first.items()))
+    # warmed ms/step in turns: unfused, fused, fused, unfused
+    times = {"unfused": [], "fused": []}
+    for route in ("unfused", "fused", "fused", "unfused"):
+        r = routes[route]
+        times[route].append(wall_ms_per_call(
+            lambda: r["step"](r["state"], labeled, generator=r["gen"]),
+            reps=5))
+    lines = [card]
+    top = {}
+    for route, r in routes.items():
+        # one step to warm the profiler up, then the recorded step
+        traced = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: traced.append(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                r["step"](r["state"], labeled, generator=r["gen"])
+                torch.cuda.synchronize()
+                prof.step()
+        check(len(traced) == 1, f"{route}: the profiler traced no step")
+        # kernels only: a user annotation (the optimizer's step range, the
+        # profiler's step range) also shows as a device event spanning its
+        # kernels
+        events = [e for e in traced[0] if not e.is_user_annotation
+                  and not e.key.startswith("ProfilerStep")]
+        dev_ms = sum(e.self_device_time_total for e in events
+                     if e.device_type == DeviceType.CUDA) / 1e3
+        ops_ms = sorted(((e.self_device_time_total / 1e3, e.key)
+                         for e in events if e.device_type == DeviceType.CPU
+                         and e.self_device_time_total > 0), reverse=True)
+        kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                       for e in events if e.device_type == DeviceType.CUDA
+                       and ("fused_mlp" in e.key or "ball_query" in e.key
+                            or "fps_kernel" in e.key)), reverse=True)
+        # the profile is complete if it saw every hand-written kernel
+        # launch of the step (a train-mode fused call is L+1 launches)
+        expect = {"fps_kernel": r["launches"]["fps"],
+                  "ball_query_kernel": r["launches"]["ball_query_group"],
+                  "fused_mlp_kernel": sum(len(rec["weights"]) + 1
+                                          for rec in records)
+                  if route == "fused" else 0}
+        seen = {name: sum(c for _, c, k in kern if k.startswith(
+            f"(anonymous namespace)::{name}(")) for name in expect}
+        complete = seen == expect
+        # busy share: the profiled step's kernel time over the unprofiled
+        # step's wall time (the profiler slows the host, not the kernels)
+        step_ms = float(np.mean(times[route]))
+        top[route] = dict(device_ms=dev_ms, step_ms=step_ms,
+                          busy_share=dev_ms / step_ms, by_op=ops_ms[:12],
+                          kernels=kern, kernel_launches_seen=seen,
+                          complete=complete)
+        print(f"[train] {route} profile of one step: device kernel time "
+              f"{dev_ms:.3f} ms against {step_ms:.3f} ms/step unprofiled "
+              f"(busy share {dev_ms / step_ms:.3f}); hand-written kernel "
+              f"launches seen {seen} ("
+              f"{'complete' if complete else 'INCOMPLETE: events lost'}); "
+              f"top ops " + "; ".join(
+                  [f"{k[:40]} {v:.2f}" for v, k in ops_ms[:6]]
+                  + [f"{k[:40]} {v:.2f} x{c}" for v, c, k in kern[:3]]))
+        lines.append(f"--- {route} step\n" + traced[0].table(
+            sort_by="self_device_time_total", row_limit=25))
+        print(f"[train] {route}: {np.mean(times[route]):.3f} ms/step "
+              f"({times[route]}), peak memory "
+              f"{r['peak'] / 2**30:.2f} GiB [{card}]")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_train_profile.txt"),
+              "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return dict(batch=TRAIN_B, first_step=first, step_ms=times, profile=top,
+                backbone_probe=dict(feature_max_abs_diff=probe,
+                                    grad_gap_of_norm=grad_gap,
+                                    vote_xyz_max_abs_diff=vote_gap,
+                                    vote_aggregation_fps_moved=moved),
+                routes={k: {kk: v[kk] for kk in ("stats", "launches", "peak",
+                                                 "bqg_backward_dxyz_norm")}
+                        for k, v in routes.items()}), records
+
+
+def fused_kernel_rows(records, mode):
+    """Phase 9: the kernel against its plain version on recorded inputs
+    (one record per fused SA layer, in sa1..sa4 order)."""
+    import torch
+    from omni_pq_torch.ops.fused_mlp import kernel_mlp_pool, plain_mlp_pool
+    rows = []
+    for i, rec in enumerate(records):
+        args = (rec["grouped"], rec["weights"], rec["scales"],
+                rec["biases"], rec["ra_means"], rec["ra_vars"], rec["train"],
+                rec["eps"])
+        with torch.no_grad():
+            got = kernel_mlp_pool(*args)
+            torch.cuda.synchronize()
+            want = plain_mlp_pool(*args)
+        errs = {}
+        worst, ok = max_violation(got[0], want[0], **FUSED_TOL)
+        check(ok, f"fused_mlp {mode} sa{i + 1}: pooled |diff| {worst}")
+        errs["pooled"] = worst
+        for j, (a, b) in enumerate(zip(got[1], want[1])):
+            worst, ok = max_violation(a, b, **FUSED_TOL)
+            check(ok, f"fused_mlp {mode} sa{i + 1}: mean {j} |diff| {worst}")
+            errs[f"mean{j}"] = worst
+        for j, (a, b) in enumerate(zip(got[2], want[2])):
+            worst, ok = max_violation(a, b, **FUSED_VAR_TOL)
+            check(ok, f"fused_mlp {mode} sa{i + 1}: var {j} |diff| {worst}")
+            errs[f"var{j}"] = worst
+        Bx, S, K, C0 = rec["grouped"].shape
+        chans = [C0] + [w.shape[1] for w in rec["weights"]]
+        L = len(rec["weights"])
+        rows_n = Bx * S * K
+        one = chain_flops(rows_n, chans)
+        # the kernel's own work: a train call runs pass p over layers 0..p
+        # for p < L, then the whole chain
+        ran = one + (sum(chain_flops(rows_n, chans[:p + 2])
+                         for p in range(L)) if rec["train"] else 0)
+        nbytes = 4 * (rec["grouped"].numel()
+                      + sum(w.numel() for w in rec["weights"])
+                      + Bx * S * chans[-1]
+                      + (2 * sum(chans[1:]) if rec["train"] else 0))
+        bnd, by = bound_ms(nbytes, one)
+        rows.append(dict(call=f"sa{i + 1}", mode=mode,
+                         shape=f"B{Bx} S{S} K{K} C{'/'.join(map(str, chans))}",
+                         max_abs_err=max(errs.values()), errs=errs,
+                         chain_flops=one, kernel_flops=ran,
+                         chains_run=ran / one, bound_ms=bnd, bound_by=by,
+                         args=args))
+    return rows
 
 
 def main() -> int:
@@ -241,7 +648,8 @@ def main() -> int:
             "max_abs_err": max(int((idx - idx_p).abs().max()),
                                float((grouped - grouped_p).abs().max())),
             "scanned_share": int(scanned) / (Bx * S * N),
-            "bound_ms": bnd, "bound_by": by, "args": (r, k, x, ctr)})
+            "scanned": int(scanned), "bound_ms": bnd, "bound_by": by,
+            "args": (r, k, x, ctr)})
     print("[check] every kernel equal to its plain version at "
           f"{len(fps_calls)} fps and {len(bq_calls)} ball-query shapes "
           "(tolerance 0: indices and grouped xyz bitwise)")
@@ -251,12 +659,23 @@ def main() -> int:
         x, npoint = row.pop("args")
         row["ms"] = time_ms(lambda: ops.fps(x, npoint), reps=10)
         row["plain_ms"] = time_ms(lambda: ops.fps_plain(x, npoint), reps=2)
+    rows["ball_query"] = []  # the idx-only entry point of the same kernel
     for row in rows["ball_query_group"]:
         r, k, x, ctr = row.pop("args")
         row["ms"] = time_ms(lambda: ops.ball_query_group(r, k, x, ctr),
                             reps=10)
         row["plain_ms"] = time_ms(
             lambda: ops.ball_query_group_plain(r, k, x, ctr), reps=2)
+        Bx, N, _ = x.shape
+        S = ctr.shape[1]
+        bnd, by = bound_ms(Bx * N * 12 + Bx * S * 12 + Bx * S * k * 4,
+                           row["scanned"] * BQ_OPS_PER_POINT)
+        rows["ball_query"].append({
+            "call": row["call"], "shape": row["shape"], "max_abs_err": 0,
+            "ms": time_ms(lambda: ops.ball_query(r, k, x, ctr), reps=10),
+            "plain_ms": time_ms(lambda: ops.ball_query_ref(r, k, x, ctr),
+                                reps=2),
+            "bound_ms": bnd, "bound_by": by})
     for kname, krows in rows.items():
         for row in krows:
             print(f"[time] {kname:16s} {row['call']:16s} {row['shape']:28s} "
@@ -309,6 +728,43 @@ def main() -> int:
     else:
         print("[profile] torch.profiler recorded no device time: not measured")
 
+    # -- 7. fused eval forward
+    counted = {"fps": ops.fps, "ball_query_group": ops.ball_query_group,
+               "fused_mlp_pool": ops.fused_mlp_pool}
+    report["fused_forward"], eval_records = fused_forward_phase(
+        cfg, pc, model, ep, counted, card)
+    fused_launches = report["fused_forward"]["launches"]["fused_mlp_pool"]
+
+    # -- 8. train step
+    report["train"], train_records = train_phase(cfg, dev, counted, card)
+
+    # -- 9. the fused kernel against its plain version, both modes
+    check(len(eval_records) == 4 and len(train_records) == 4,
+          f"recorded {len(eval_records)} eval and {len(train_records)} "
+          "train fused calls, expected 4 each")
+    frows = (fused_kernel_rows(eval_records, "eval")
+             + fused_kernel_rows(train_records, "train"))
+    del eval_records, train_records
+    print(f"[check] fused_mlp_pool equal to its plain version within "
+          f"{FUSED_TOL} (batch variances {FUSED_VAR_TOL}) at 4 eval (B={B})"
+          f" and 4 train (B={TRAIN_B}) shapes; largest |diff| "
+          f"{max(r['max_abs_err'] for r in frows):.3e}")
+
+    # -- 10. times of the fused kernel and its plain version
+    from omni_pq_torch.ops.fused_mlp import kernel_mlp_pool, plain_mlp_pool
+    for row in frows:
+        args = row.pop("args")
+        with torch.no_grad():
+            row["ms"] = time_ms(lambda: kernel_mlp_pool(*args), reps=5)
+            row["plain_ms"] = time_ms(lambda: plain_mlp_pool(*args), reps=3)
+        print(f"[time] fused_mlp_pool   {row['call']} {row['mode']:5s} "
+              f"{row['shape']:30s} kernel {row['ms']:.3f} ms  plain "
+              f"(cuBLAS chain) {row['plain_ms']:.3f} ms  bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}, one chain; "
+              f"the kernel runs {row['chains_run']:.2f} chains)  [{card}]")
+    rows["fused_mlp_pool"] = frows
+    report["kernel_rows"] = rows
+
     summary = []
     for kname, source, replaces in (
             ("fps", "omni_pq_torch/csrc/fps.cu", "omni_pq_tpu/ops/fps.py:50"),
@@ -325,6 +781,21 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": max(krows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": None, "matched": True})
+    # the fused kernel: its main path is phase 7's fused eval forward (one
+    # eval-mode call a fused SA layer); times and bounds are that forward's
+    # 4 calls, max_abs_err covers the train-mode calls of phase 8 too
+    erows = [r for r in frows if r["mode"] == "eval"]
+    summary.append({
+        "name": "fused_mlp_pool", "route": "cuda",
+        "source": "omni_pq_torch/csrc/fused_mlp.cu",
+        "replaces": "omni_pq_tpu/ops/fused_mlp.py:116",
+        "launches": fused_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in frows),
+        "ms": sum(r["ms"] for r in erows),
+        "plain_ms": sum(r["plain_ms"] for r in erows),
+        "bound_ms": sum(r["bound_ms"] for r in erows),
+        "bound_by": max(erows, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": None, "matched": True})
     report["kernels"] = summary
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)

@@ -3,9 +3,9 @@
 The port's own copy of `omni_pq_tpu/config.py`: the ScanNet dataset
 statistics (18 classes, 1 heading bin, 18 size clusters, mean box sizes) and
 the PQ-Transformer architecture. Field names and defaults are the JAX
-package's, so a config converts field by field. The JAX-only compute knobs
-(`compute_dtype`, `remat_sa`, `fused_sa`) and the training-only `dropout` are
-left out: the port runs the float32 eval forward.
+package's, so a config converts field by field. The port computes in
+float32 only: the JAX package's `compute_dtype` (bfloat16) and `remat_sa`
+knobs are left out.
 """
 from __future__ import annotations
 
@@ -68,6 +68,7 @@ class ModelConfig:
     hidden_dim: int = 288
     nhead: int = 8
     dim_feedforward: int = 2048
+    dropout: float = 0.1           # decoder dropout, train mode only
     backbone_width: int = 2
     backbone_depth: int = 2
     backbone_npoints: tuple = (2048, 1024, 512, 256)
@@ -79,6 +80,11 @@ class ModelConfig:
     # divides by the global tensor norm (pq_transformer.py:112-113). Same
     # default and meaning as the JAX package's flag.
     quad_normal_per_vector_norm: bool = True
+    # route each SA layer's Dense -> BN -> ReLU chain + nsample max-pool
+    # through the fused kernel (ops/fused_mlp.py) wherever its widths pass
+    # `ops.fused_mlp.supports`; the other layers keep the unfused chain.
+    # Same meaning and default as the JAX package's flag.
+    fused_sa: bool = False
 
 
 # the CLIs' --smoke model (the JAX package's cli/train.py make_model_config)

@@ -1,7 +1,7 @@
 """Synthetic room generator: reference-shaped batches with no data on disk.
 
-The port's own copy of `make_scene` / `make_batch` from
-`omni_pq_tpu/data/synthetic.py`: the same seed gives the same scenes.
+The port's own copy of `make_scene` / `make_batch` / `SyntheticDataset`
+from `omni_pq_tpu/data/synthetic.py`: the same seed gives the same scenes.
 
 Generates rectangular rooms (4 walls + floor + ceiling) containing a few
 axis-aligned objects, sampled into fixed-shape batches with exactly the
@@ -205,3 +205,26 @@ def make_batch(rng: np.random.Generator, batch_size: int = 2,
     scenes = [make_scene(rng, num_points, **kw) for _ in range(batch_size)]
     return {k: np.stack([s[k] for s in scenes]) for k in scenes[0]}
 
+
+
+class SyntheticDataset:
+    """Map-style dataset of deterministic synthetic rooms (scene i is
+    reproducible from seed+i, the same scene as the JAX package's
+    SyntheticDataset gives): a stand-in for the ScanNet loader in smoke
+    training without data on disk."""
+
+    def __init__(self, n_scenes: int = 32, num_points: int = 40000,
+                 seed: int = 0, **kw):
+        self.n_scenes = n_scenes
+        self.num_points = num_points
+        self.seed = seed
+        self.kw = kw
+
+    def __len__(self):
+        return self.n_scenes
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(self.seed * 100003 + idx)
+        s = make_scene(rng, self.num_points, **self.kw)
+        s["scan_idx"] = np.int64(idx)
+        return s

@@ -8,6 +8,8 @@ Channel plan with width=2, depth=2 (the reference default):
   fp1: sa4 -> sa3, mlp [512,512]; fp2: sa3 -> sa2, mlp [512,288]
 Seeds: 1024 x 288-d at the sa2 coordinates. seed_inds keeps the reference's
 approximation sa1_inds[:, :1024] (backbone_module.py:135-137).
+`fused=True` routes the SA layers whose widths pass the gate through the
+fused SA-MLP kernel (`ModelConfig.fused_sa`).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ class Pointnet2Backbone(nn.Module):
     def __init__(self, input_feature_dim: int = 0, width: int = 2,
                  depth: int = 2, out_dim: int = 288,
                  npoints=(2048, 1024, 512, 256), nsamples=(64, 32, 16, 16),
-                 radii=(0.2, 0.4, 0.8, 1.2)):
+                 radii=(0.2, 0.4, 0.8, 1.2), fused: bool = False):
         super().__init__()
         w, d = width, depth
         outs = [128 * w, 256 * w, 256 * w, 256 * w]
@@ -30,7 +32,7 @@ class Pointnet2Backbone(nn.Module):
         for i in range(4):
             self.add_module(f"sa{i + 1}", SAModuleVotes(
                 npoints[i], radii[i], nsamples[i], cin, mlps[i] + [outs[i]],
-                normalize_xyz=True))
+                normalize_xyz=True, fused=fused))
             cin = outs[i]
         self.fp1 = FPModule([outs[3] + outs[2], 256 * w, 256 * w])
         self.fp2 = FPModule([256 * w + outs[1], 256 * w, out_dim])

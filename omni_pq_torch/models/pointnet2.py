@@ -1,4 +1,4 @@
-"""PointNet++ modules (channel-last, eval mode).
+"""PointNet++ modules (channel-last; eval and train mode).
 
 The port of `omni_pq_tpu/models/pointnet2.py` (SharedMLP, SAModuleVotes,
 FPModule). Parameters carry the reference PQ_Transformer's state_dict names
@@ -6,6 +6,8 @@ and shapes (pytorch_utils.SharedMLP: `layer{i}.conv.weight` of shape
 (out, in, 1, 1) and `layer{i}.bn.bn.*`), so a reference `.pth` loads as it
 is. Every 1x1 convolution runs as a matmul on channel-last tensors
 (`F.linear`), never through cuDNN, which would default to TF32.
+`SAModuleVotes(fused=True)` runs its MLP + max-pool through
+`ops.fused_mlp_pool` on the same parameters, where the widths pass the gate.
 """
 from __future__ import annotations
 
@@ -17,6 +19,10 @@ from torch import nn
 
 from .. import ops
 
+# flax's momentum convention (new = 0.9 * old + 0.1 * batch), the JAX
+# package's BN_MOMENTUM; the reference's torch BN momentum 0.1 is the same
+# update
+BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 
 
@@ -36,22 +42,39 @@ class Conv(nn.Module):
         return F.linear(x, self.weight.flatten(1), self.bias)
 
 
+def update_running_stats(bn: nn.BatchNorm1d, mean: torch.Tensor,
+                         var: torch.Tensor) -> None:
+    """flax's running-stat update: new = 0.9 * old + 0.1 * batch, with the
+    biased batch variance (not nn.BatchNorm1d's unbiased one)."""
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                              + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                             + (1 - BN_MOMENTUM) * var)
+
+
 class BatchNorm(nn.BatchNorm1d):
-    """Eval-mode BatchNorm over the last axis of a channel-last tensor, in
-    the JAX package's (flax's) order: (x - mean) * (rsqrt(var + eps) *
-    scale) + bias. Keeps nn.BatchNorm1d's parameters and buffers, so its
-    state_dict keys are the reference's."""
+    """BatchNorm over the last axis of a channel-last tensor with the JAX
+    package's (flax's) semantics: (x - mean) * (rsqrt(var + eps) * scale) +
+    bias. Eval mode uses the running stats. Train mode uses the batch mean
+    and the fast variance max(0, E[x^2] - E[x]^2) over every axis but the
+    last (gradients flow through both), and updates the running stats with
+    `update_running_stats`. Keeps nn.BatchNorm1d's parameters and buffers,
+    so its state_dict keys are the reference's."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "omni_pq_torch runs the eval forward: train-mode BatchNorm "
-                "comes with the training slice")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+            update_running_stats(self, mean.detach(), var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class _BN(nn.Module):
@@ -88,15 +111,35 @@ class SharedMLP(nn.Sequential):
 class SAModuleVotes(nn.Module):
     """Set abstraction: FPS -> ball query + group -> SharedMLP -> max-pool
     (PointnetSAModuleVotes with pooling='max', use_xyz=True).
-    `mlp_channels` excludes the implicit +3 xyz input channels."""
+    `mlp_channels` excludes the implicit +3 xyz input channels.
+
+    fused=True routes the MLP + max-pool through `ops.fused_mlp_pool` when
+    nsample and the widths pass `ops.fused_mlp_supports` (the JAX package's
+    FusedMLPPool): the same parameters and buffers, and in train mode the
+    same running-stat update from the kernel's batch statistics."""
 
     def __init__(self, npoint: int, radius: float, nsample: int,
                  in_channels: int, mlp_channels: Sequence[int],
-                 normalize_xyz: bool = False):
+                 normalize_xyz: bool = False, fused: bool = False):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.normalize_xyz = normalize_xyz
         self.mlp_module = SharedMLP([in_channels + 3, *mlp_channels])
+        self.fused = fused and ops.fused_mlp_supports(nsample, mlp_channels,
+                                                      torch.float32)
+
+    def _fused_mlp_pool(self, grouped: torch.Tensor) -> torch.Tensor:
+        layers = list(self.mlp_module)
+        bns = [layer.bn.bn for layer in layers]
+        pooled, means, variances = ops.fused_mlp_pool(
+            grouped, [layer.conv.weight.flatten(1).t().contiguous()
+                      for layer in layers],
+            [bn.weight for bn in bns], [bn.bias for bn in bns],
+            [bn.running_mean for bn in bns], [bn.running_var for bn in bns],
+            train=self.training, eps=BN_EPS)
+        for bn, mean, var in zip(bns, means, variances):
+            update_running_stats(bn, mean, var)
+        return pooled
 
     def forward(self, xyz: torch.Tensor,
                 features: Optional[torch.Tensor] = None):
@@ -113,6 +156,8 @@ class SAModuleVotes(nn.Module):
                                  ops.group_points(features, idx)], dim=-1)
         else:
             grouped = grouped_xyz
+        if self.fused:
+            return new_xyz, self._fused_mlp_pool(grouped), inds
         return new_xyz, self.mlp_module(grouped).amax(dim=2), inds
 
 

@@ -1,15 +1,19 @@
 """PQ-Transformer, the flagship model (the port of
-`omni_pq_tpu/models/pq_transformer.py`), eval mode.
+`omni_pq_tpu/models/pq_transformer.py`), in eval and train mode.
 
 Backbone seeds -> FPS quad queries + voted object queries -> initial proposal
 heads -> decoder layers over the joint queries with per-layer object/quad
 heads. The `end_points` dict has the JAX package's keys (119 at the default
 config) and prefixes 'proposal_', '0head_'..'4head_', 'last_'. Submodule
 names are the reference PQ_Transformer's, so its state_dict keys are too.
+As in the JAX package, the per-layer predicted centres that become the next
+layer's query positions carry no gradient (pq_transformer.py:263-264 of the
+reference). `model.train()` switches BatchNorm to batch statistics and the
+decoder's dropout on; the masks come from the generator passed to forward.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -37,11 +41,11 @@ class PQTransformer(nn.Module):
             input_feature_dim=cfg.input_feature_dim, width=cfg.backbone_width,
             depth=cfg.backbone_depth, out_dim=hd,
             npoints=cfg.backbone_npoints, nsamples=cfg.backbone_nsamples,
-            radii=cfg.backbone_radii)
+            radii=cfg.backbone_radii, fused=cfg.fused_sa)
         self.vote = VotingModule(hd)
         self.vote_aggregation = SAModuleVotes(
             cfg.num_proposal, 0.3, cfg.vote_aggregation_nsample, hd,
-            [hd, hd, hd], normalize_xyz=True)
+            [hd, hd, hd], normalize_xyz=True, fused=cfg.fused_sa)
         obj_head = dict(hidden_dim=hd, num_heading_bin=cfg.num_heading_bin,
                         num_size_cluster=cfg.num_size_cluster,
                         num_class=cfg.num_class)
@@ -60,14 +64,19 @@ class PQTransformer(nn.Module):
         self.decoder = nn.ModuleList(
             TransformerDecoderLayer(hd, cfg.nhead, cfg.dim_feedforward,
                                     self.decoder_self_posembeds[i],
-                                    self.decoder_cross_posembeds[i])
+                                    self.decoder_cross_posembeds[i],
+                                    cfg.dropout)
             for i in range(L))
         self.prediction_heads = nn.ModuleList(
             PredictHead(**obj_head) for _ in range(L))
         self.prediction_quad_heads = nn.ModuleList(
             QuadPredictHead(**quad_head) for _ in range(L))
 
-    def forward(self, point_clouds: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, point_clouds: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """point_clouds (B, N, 3+C) -> end_points. `generator` (on the
+        model's device) draws the decoder's dropout masks in train mode."""
         cfg = self.cfg
         end_points = self.backbone(point_clouds)
         seed_xyz = end_points["fp2_xyz"]
@@ -101,8 +110,9 @@ class PQTransformer(nn.Module):
         key = self.decoder_key_proj(seed_features)
         prefixes = decoder_prefixes(cfg.num_decoder_layers)[1:]
         for i, prefix in enumerate(prefixes):
-            query_pos = torch.cat([center, center_q], dim=1)
-            query = self.decoder[i](query, key, query_pos, seed_xyz)
+            query_pos = torch.cat([center, center_q], dim=1).detach()
+            query = self.decoder[i](query, key, query_pos, seed_xyz,
+                                    generator)
             center, _, ep = self.prediction_heads[i](
                 query[:, :cfg.num_proposal], cluster_xyz, prefix)
             end_points.update(ep)

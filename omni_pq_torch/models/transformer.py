@@ -5,7 +5,10 @@ Channel-last throughout. Attention is written out as matmul -> softmax ->
 matmul with separate q/k/v projections, logits divided by sqrt(head dim)
 after the product and softmax in float32, as the JAX package does; the
 parameters keep torch MultiheadAttention's names (`in_proj_weight`,
-`in_proj_bias`, `out_proj.*`). Eval mode: there is no dropout.
+`in_proj_bias`, `out_proj.*`). In train mode the decoder applies dropout
+where the JAX package does (attention weights, the two attention outputs,
+the FFN hidden layer and output), with masks drawn from the
+`torch.Generator` the caller passes in, never from the global RNG.
 """
 from __future__ import annotations
 
@@ -15,6 +18,22 @@ import torch
 from torch import nn
 
 from .pointnet2 import BatchNorm, Conv
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator) -> torch.Tensor:
+    """flax's nn.Dropout: keep each element with probability 1 - p and scale
+    the kept ones by 1 / (1 - p). The mask comes from `generator` (on x's
+    device); train mode with p > 0 and no generator raises."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator: the "
+                         "masks never come from the global RNG")
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 class VotingModule(nn.Module):
@@ -55,14 +74,15 @@ class PositionEmbeddingLearned(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Standard multi-head attention with packed q/k/v parameters."""
 
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
         super().__init__()
         self.nhead = nhead
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = Conv(d_model, d_model, kernel_dims=0)
 
-    def forward(self, q, k, v):
+    def forward(self, q, k, v, generator=None):
         """q (B,Lq,D), k/v (B,Lk,D) -> (B,Lq,D)."""
         B, Lq, D = q.shape
         H = self.nhead
@@ -74,7 +94,8 @@ class MultiHeadAttention(nn.Module):
         kp = kp.reshape(B, -1, H, hd)
         vp = vp.reshape(B, -1, H, hd)
         logits = torch.einsum("bqhd,bkhd->bhqk", qp, kp) / math.sqrt(hd)
-        weights = torch.softmax(logits, dim=-1)
+        weights = dropout(torch.softmax(logits, dim=-1), self.dropout,
+                          self.training, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, vp).reshape(B, Lq, D)
         return self.out_proj(out)
 
@@ -88,10 +109,12 @@ class TransformerDecoderLayer(nn.Module):
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  self_posembed: PositionEmbeddingLearned,
-                 cross_posembed: PositionEmbeddingLearned):
+                 cross_posembed: PositionEmbeddingLearned,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.multihead_attn = MultiHeadAttention(d_model, nhead)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.multihead_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.linear1 = Conv(d_model, dim_feedforward, kernel_dims=0)
         self.linear2 = Conv(dim_feedforward, d_model, kernel_dims=0)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
@@ -100,13 +123,19 @@ class TransformerDecoderLayer(nn.Module):
         self.self_posembed = self_posembed
         self.cross_posembed = cross_posembed
 
-    def forward(self, query, key, query_pos, key_pos):
-        """query (B,Pq,D), key (B,Pk,D), query_pos (B,Pq,3), key_pos (B,Pk,3)."""
+    def forward(self, query, key, query_pos, key_pos, generator=None):
+        """query (B,Pq,D), key (B,Pk,D), query_pos (B,Pq,3), key_pos (B,Pk,3);
+        `generator` draws the dropout masks in train mode."""
+        def drop(x):
+            return dropout(x, self.dropout, self.training, generator)
+
         q_embed = self.self_posembed(query_pos)
         k_embed = self.cross_posembed(key_pos)
         qkv = query + q_embed
-        query = self.norm1(query + self.self_attn(qkv, qkv, qkv))
+        attn = self.self_attn(qkv, qkv, qkv, generator)
+        query = self.norm1(query + drop(attn))
         kv = key + k_embed
-        query = self.norm2(query + self.multihead_attn(query + q_embed, kv, kv))
-        ff = self.linear2(torch.relu(self.linear1(query)))
-        return self.norm3(query + ff)
+        attn = self.multihead_attn(query + q_embed, kv, kv, generator)
+        query = self.norm2(query + drop(attn))
+        ff = self.linear2(drop(torch.relu(self.linear1(query))))
+        return self.norm3(query + drop(ff))

@@ -5,8 +5,16 @@ plain version.
 CPU and launch the CUDA kernel (`omni_pq_torch/csrc/ball_query.cu`) for
 tensors on the card, at every shape: there is no size threshold and no
 fallback. They replace the JAX package's Pallas kernel
-`omni_pq_tpu/ops/ball_query.py::_bq_kernel` (forward; `ball_query` is its
-idx-only form and shares the kernel).
+`omni_pq_tpu/ops/ball_query.py::_bq_kernel` (`ball_query` is its idx-only
+form and shares the kernel).
+
+`ball_query_group` is an autograd Function on both devices, with the JAX
+package's custom VJP (`_bqg_bwd`): grouped = xyz[idx] - centre, so the
+points get the scatter-add of the cotangent at idx (a centre with no hit
+has idx 0, so its rows' gradient goes to xyz[0]) and each centre gets minus
+the sum over its K slots. The JAX VJP is plain XLA, so the backward here is
+plain torch too (`index_add_`, whose atomics on the card add in no fixed
+order). `ball_query` has no gradient, like the reference's BallQuery.
 """
 from __future__ import annotations
 
@@ -43,18 +51,47 @@ def _launch(radius, nsample, xyz, new_xyz, emit_values: bool):
     return idx, grouped
 
 
+def ball_query_group_backward(idx: torch.Tensor, g: torch.Tensor, N: int):
+    """The VJP of grouped = xyz[idx] - centre: (idx (B,S,K), cotangent
+    (B,S,K,3)) -> (d xyz (B,N,3), d centres (B,S,3))."""
+    B, S, K = idx.shape
+    rows = (idx.long() + N * torch.arange(B, device=idx.device)[:, None, None])
+    dxyz = torch.zeros(B * N, 3, dtype=g.dtype, device=g.device)
+    dxyz.index_add_(0, rows.reshape(-1), g.reshape(-1, 3))
+    return dxyz.reshape(B, N, 3), -g.sum(dim=2)
+
+
+class _BallQueryGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, radius, nsample, xyz, new_xyz):
+        if xyz.device.type == "cpu":
+            idx, grouped = ball_query_group_plain(radius, nsample, xyz,
+                                                  new_xyz)
+        else:
+            idx, grouped = _launch(radius, nsample, xyz, new_xyz,
+                                   emit_values=True)
+            ball_query_group.launches += 1
+        ctx.save_for_backward(idx)
+        ctx.n_points = xyz.shape[1]
+        ctx.mark_non_differentiable(idx)
+        return idx, grouped
+
+    @staticmethod
+    def backward(ctx, _g_idx, g):
+        idx, = ctx.saved_tensors
+        dxyz, dnew = ball_query_group_backward(idx, g, ctx.n_points)
+        return None, None, dxyz, dnew
+
+
 def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor,
                      new_xyz: torch.Tensor):
     """Fused ball query + relative-xyz grouping.
 
     (B,N,3) points x (B,S,3) centres -> (idx (B,S,nsample) int32,
     grouped (B,S,nsample,3) float32) with grouped == xyz[idx] - centre. A
-    centre with no in-radius hit gets idx 0 and rows xyz[0] - centre."""
-    if xyz.device.type == "cpu":
-        return ball_query_group_plain(radius, nsample, xyz, new_xyz)
-    out = _launch(radius, nsample, xyz, new_xyz, emit_values=True)
-    ball_query_group.launches += 1
-    return out
+    centre with no in-radius hit gets idx 0 and rows xyz[0] - centre.
+    Differentiable in xyz and new_xyz (see the module docstring)."""
+    return _BallQueryGroup.apply(radius, nsample, xyz, new_xyz)
 
 
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor,

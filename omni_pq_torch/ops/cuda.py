@@ -39,7 +39,16 @@ _SIGNATURES = {
                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_float, ctypes.c_void_p]),
+    "fused_mlp": ("fused_mlp_launch",
+                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]),
 }
+
+# dynamic shared memory one block may use on an H100 (227 KB)
+MAX_SHARED_BYTES = 232448
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "omni_pq_torch"
 

@@ -14,7 +14,7 @@ from .reference import fps_ref as fps_plain
 
 # the min-distance row lives in shared memory: 227 KB a block, less 1 KB
 # kept for the kernel's static shared memory (272 bytes by ptxas)
-MAX_POINTS = (232448 - 1024) // 4
+MAX_POINTS = (cuda.MAX_SHARED_BYTES - 1024) // 4
 
 
 def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:

@@ -16,7 +16,10 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor):
     Neighbours are chosen by the JAX package's distance form,
     |u|^2 - 2 u.k + |k|^2 clamped at 0, in 3 argmin passes (first minimum on
     ties); the 3 chosen distances are then recomputed directly, so a point
-    that coincides with a known point gets exactly 0 (interpolate.py:34-62)."""
+    that coincides with a known point gets exactly 0 (interpolate.py:34-62).
+    No gradient flows to the coordinates, as in the JAX package and the
+    reference's ThreeNN."""
+    unknown, known = unknown.detach(), known.detach()
     cross = torch.bmm(unknown, known.transpose(1, 2))
     d2 = ((unknown * unknown).sum(-1)[:, :, None] - 2.0 * cross
           + (known * known).sum(-1)[:, None, :]).clamp_min(0.0)

@@ -41,6 +41,7 @@ def radius_sq(radius: float) -> float:
 
 def fps_ref(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Furthest point sampling: (B, N, 3) float32 -> (B, npoint) int32."""
+    xyz = xyz.detach()  # indices only: no graph to build
     B, N, _ = xyz.shape
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     valid = x * x + y * y + z * z > FPS_SKIP_NORM_SQ
@@ -63,6 +64,7 @@ def ball_query_ref(radius: float, nsample: int, xyz: torch.Tensor,
     """(B,N,3) points x (B,S,3) centres -> (B,S,nsample) int32 indices.
 
     One batch row at a time, so the (S, N) distance matrix stays small."""
+    xyz, new_xyz = xyz.detach(), new_xyz.detach()  # indices only
     N = xyz.shape[1]
     r2 = radius_sq(radius)
     cols = torch.arange(N, dtype=torch.int32, device=xyz.device)

@@ -6,11 +6,18 @@ Run on a machine with a card and nvcc, from the repo root:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
 (`--noconftest`: tests/conftest.py sets up JAX, which that machine lacks;
-this file imports only torch, numpy and the port.) Tolerance: none. Each
-kernel must equal its plain version bitwise, indices and grouped xyz alike,
-and the --smoke forward through the kernels must equal the one through the
-plain versions.
+this file imports only torch, numpy and the port.) Tolerance for fps and
+ball query: none. Each must equal its plain version bitwise, indices and
+grouped xyz alike, and the --smoke forward through them must equal the one
+through the plain versions. The fused SA-MLP kernel sums its products in
+another order than cuBLAS: pooled outputs and batch means within 1e-4 abs +
+rel of the plain version, batch variances within 1e-4 rel + 1e-5 abs; its
+train stats are bitwise the same from run to run. The ball-query-group
+backward on the card equals the CPU's to 1e-5 (index_add_ adds in no fixed
+order on the card).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +27,7 @@ from omni_pq_torch.config import SMOKE_MODEL, ModelConfig
 from omni_pq_torch.data import make_batch
 from omni_pq_torch.infer import build_model, eval_forward
 from omni_pq_torch.ops.fps import MAX_POINTS
+from omni_pq_torch.ops.fused_mlp import kernel_mlp_pool, plain_mlp_pool
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +140,130 @@ def test_smoke_forward_through_kernels_equals_plain(dev):
     for k in ep:
         if k.endswith("_inds"):
             assert torch.equal(ep[k].cpu(), cpu[k]), k
+
+
+# (B, S, K, C0, widths): the four full-width SA layers at a few centres, a
+# partial last tile, a single layer and a K above 32
+FUSED_CASES = {
+    "sa1": (2, 40, 64, 3, (128, 128, 256)),
+    "sa2": (2, 24, 32, 259, (256, 256, 512)),
+    "sa3": (2, 17, 16, 515, (256, 256, 512)),
+    "k8_one_layer": (3, 5, 8, 20, (128,)),
+    "k24": (1, 9, 24, 7, (128, 256)),
+}
+
+
+def _fused_inputs(case, dev, seed=0):
+    B, S, K, C0, widths = FUSED_CASES[case]
+    r = np.random.default_rng(seed)
+    grouped = _cuda(r.normal(size=(B, S, K, C0)), dev)
+    ws, ss, bs, rm, rv = [], [], [], [], []
+    cin = C0
+    for c in widths:
+        ws.append(_cuda(r.normal(size=(cin, c)) / np.sqrt(cin), dev))
+        ss.append(_cuda(r.uniform(0.5, 1.5, c), dev))
+        bs.append(_cuda(r.normal(0, 0.1, c), dev))
+        rm.append(_cuda(r.normal(0, 0.2, c), dev))
+        rv.append(_cuda(r.uniform(0.5, 1.5, c), dev))
+        cin = c
+    return grouped, ws, ss, bs, rm, rv
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_mlp_kernel_matches_plain(dev, case, train):
+    args = _fused_inputs(case, dev)
+    got = kernel_mlp_pool(*args, train, 1e-5)
+    torch.cuda.synchronize()
+    want = plain_mlp_pool(*args, train, 1e-5)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    assert len(got[1]) == len(want[1]) == (len(args[1]) if train else 0)
+    for a, b in zip(got[1], want[1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for a, b in zip(got[2], want[2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    if train:  # fixed-order reductions: the same bits every run
+        again = kernel_mlp_pool(*args, train, 1e-5)
+        for a, b in zip(got[1] + got[2], again[1] + again[2]):
+            assert torch.equal(a, b)
+        assert torch.equal(got[0], again[0])
+
+
+def test_fused_mlp_gradients_on_card_match_cpu(dev):
+    args = _fused_inputs("sa2", dev, seed=1)
+    cpu = [args[0].cpu()] + [[t.cpu() for t in ts] for ts in args[1:]]
+    grads = []
+    for grouped, ws, ss, bs, rm, rv in (args, cpu):
+        leaves = [grouped.requires_grad_()] + [
+            t.requires_grad_() for t in ws + ss + bs]
+        pooled, _, _ = ops.fused_mlp_pool(grouped, ws, ss, bs, train=True)
+        (pooled.sin().sum()).backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+
+
+def test_fused_mlp_wrapper_counts_and_checks(dev):
+    grouped, ws, ss, bs, rm, rv = _fused_inputs("k8_one_layer", dev)
+    before = ops.fused_mlp_pool.launches
+    ops.fused_mlp_pool(grouped, ws, ss, bs, rm, rv, train=False)
+    ops.fused_mlp_pool(grouped, ws, ss, bs, train=True)
+    assert ops.fused_mlp_pool.launches == before + 2
+    with pytest.raises(ValueError, match="K % 8"):
+        ops.fused_mlp_pool(grouped[:, :, :6].contiguous(), ws, ss, bs, rm,
+                           rv, train=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_mlp_pool(grouped.transpose(1, 2), ws, ss, bs, rm, rv,
+                           train=False)
+
+
+@pytest.mark.parametrize("case", ["no_hit_centres", "overflowing"])
+def test_ball_query_group_backward_on_card_matches_cpu(dev, case):
+    xyz, ctr, radius, k = _bq_case(case, np.random.default_rng(4))
+    g = np.random.default_rng(5).normal(size=ctr.shape[:2] + (k, 3))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        x = _cuda(xyz, dev).to(d).requires_grad_()
+        c = _cuda(ctr, dev).to(d).requires_grad_()
+        _, grouped = ops.ball_query_group(radius, k, x, c)
+        grouped.backward(_cuda(g, dev).to(d))
+        grads.append((x.grad.cpu(), c.grad.cpu()))
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=1e-5,
+                               atol=1e-5)
+
+
+FUSED_SMOKE = dict(SMOKE_MODEL, backbone_width=2,
+                   backbone_nsamples=(16, 16, 8, 8))
+
+
+def test_fused_forward_and_train_step_on_card(dev):
+    """The --smoke shapes at backbone width 2 (128..512 channels), so every
+    SA layer passes the gate: 4 fused calls a forward, eval and train, and
+    a supervised step through them close to the unfused route's."""
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.train import (OptimizerConfig, batch_to_tensors,
+                                     TrainState, make_train_step)
+    cfg = ModelConfig(num_points=2048, dropout=0.0, **FUSED_SMOKE)
+    batch = make_batch(np.random.default_rng(6), 2, cfg.num_points)
+    fused = build_model(dataclasses.replace(cfg, fused_sa=True), dev, seed=2)
+    plain = build_model(cfg, dev, seed=2)
+    ops.fused_mlp_pool.launches = 0
+    ep = eval_forward(fused, batch["point_clouds"])
+    assert ops.fused_mlp_pool.launches == 4
+    ep_ref = eval_forward(plain, batch["point_clouds"])
+    for k in ("sa1_features", "sa2_features", "sa3_features",
+              "sa4_features", "fp2_features"):
+        torch.testing.assert_close(ep[k], ep_ref[k], rtol=1e-4, atol=1e-4)
+    labeled = batch_to_tensors(batch, dev)
+    stats = []
+    for model in (plain, fused):
+        state = TrainState(model, OptimizerConfig())
+        step = make_train_step(model, model.cfg, SCANNET_MEAN_SIZES)
+        ops.fused_mlp_pool.launches = 0
+        stats.append(step(state, labeled))
+        assert ops.fused_mlp_pool.launches == (4 if model is fused else 0)
+    for k in ("total_loss", "grad_norm"):
+        torch.testing.assert_close(stats[1][k], stats[0][k], rtol=1e-3,
+                                   atol=1e-4)
