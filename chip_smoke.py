@@ -34,10 +34,12 @@ when every phase passed:
   8. train step: the supervised step (omni_pq_torch.train) at full width on
      B=3 labeled scenes, the same initial weights through fused_sa=False and
      fused_sa=True, 3 steps each: finite losses, the first step's total_loss
-     and grad_norm of the two routes within tolerance, the ball-query-group
-     backward's gradient into vote_xyz non-zero, 4 train-mode fused calls a
-     fused step; warmed ms/step, peak memory and a torch.profiler top-ops
-     line of one step for each route.
+     and grad_norm of the two routes within tolerance, every fps and
+     ball_query_group call of the first step bitwise equal to its plain
+     version on the call's own inputs, the ball-query-group backward's
+     gradient into vote_xyz non-zero, 4 train-mode fused calls a fused step;
+     warmed ms/step, peak memory and a torch.profiler top-ops line of one
+     step for each route.
   9. the fused kernel against its plain version on phases 7 and 8's own
      inputs at every fused shape: eval mode at B=16, train mode at B=3
      (pooled output and batch statistics).
@@ -45,9 +47,27 @@ when every phase passed:
      elementwise chain that fused_sa=False runs) per shape and mode, with
      the bound (one chain's operations; a train-mode call runs L+1 passes),
      and the idx-only ball_query at phase 5's five shapes.
+ 11. ball_query_group_feats (on no model path) at the sa2-sa4 and vote
+     aggregation shapes, B=16, on phase 3's points, centres and input
+     features: bitwise equal to its plain version (float32 everywhere,
+     bfloat16 at sa3), its backward within 1e-6 of the gradient norm of the
+     CPU's at sa3 and vote aggregation; kernel, plain and bound times beside
+     the composition it would replace (ball_query_group + group_points).
+ 12. the semi-supervised step (TrainFlags(): EMA teacher + gamma mixture)
+     at full width on 3 labeled + 3 weak scenes, both routes from the same
+     weights, 3 steps each: finite stats with the JAX step's names, 12 FPS,
+     10 ball-query-group and (fused) 8 fused-MLP launches a step, every fps
+     and ball_query_group call of the first step (student and teacher)
+     bitwise equal to its plain version on its own inputs, the teacher on
+     the EMA rule with its BN stats moved, the fused step's 8 train-mode
+     calls against their plain version; one step each with the fitted
+     mixture and the ARKit loss; warmed ms/step in turns, peak memory, a
+     profile of one step per route; one step with the last quad head rigged
+     so that the gamma criterion engages (gamma_engaged_frac > 0).
 The second-last line is the kernels JSON, the last the device JSON. Details
-go to chiprun_out/chip_smoke.json, chiprun_out/chip_smoke_profile.txt and
-chiprun_out/chip_smoke_train_profile.txt.
+go to chiprun_out/chip_smoke.json, chiprun_out/chip_smoke_profile.txt,
+chiprun_out/chip_smoke_train_profile.txt and
+chiprun_out/chip_smoke_semi_profile.txt.
 """
 from __future__ import annotations
 
@@ -55,6 +75,7 @@ import dataclasses
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -88,6 +109,20 @@ ROUTE_TRAIN_GRAD_TOL = 1e-3
 # gross fault (a lost or doubled loss term); the backbone probe above is
 # what holds the fused route's gradients.
 ROUTE_STEP_RTOL = {"total_loss": 2e-2, "grad_norm": 0.3}
+# ball_query_group_feats' backward on the card against the CPU's, relative
+# to the gradient norm (index_add_ adds in no fixed order on the card)
+FEATS_BWD_TOL = 1e-6
+CONSISTENCY_WEIGHT = 0.05   # the JAX CLI's default --consistency_weight
+# the stats the semi-supervised step adds to the supervised step's (the JAX
+# step's names, which tests/test_torch_port_semi.py holds the port to)
+SEMI_STATS = {
+    "metric_normal", "metric_vertical", "metric_size", "metric_score",
+    "gamma_mixture_filter_loss", "gamma_engaged_frac",
+    "center_consistency_loss", "class_consistency_loss",
+    "size_consistency_loss", "consistency_loss",
+    "quad_center_consistency_loss_sum", "quad_class_consistency_loss_sum",
+    "quad_normal_consistency_loss_sum", "quad_size_consistency_loss_sum",
+    "quad_consistency_loss_sum", "weighted_consistency_loss"}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -185,6 +220,54 @@ def record_fused_calls(ops, records):
     return restore
 
 
+def record_group_calls(ops, records):
+    """Route the models' ops.fps and ops.ball_query_group through recorders
+    that keep each call's inputs and outputs (cloned: the step goes on) and
+    return the real op's outputs; returns a function that puts the real ops
+    back."""
+    real_fps, real_bqg = ops.fps, ops.ball_query_group
+
+    def fps(xyz, npoint):
+        inds = real_fps(xyz, npoint)
+        records.append(("fps", (xyz.detach().clone(), npoint),
+                        (inds.clone(),)))
+        return inds
+
+    def ball_query_group(radius, nsample, xyz, new_xyz):
+        idx, grouped = real_bqg(radius, nsample, xyz, new_xyz)
+        records.append(("ball_query_group",
+                        (radius, nsample, xyz.detach().clone(),
+                         new_xyz.detach().clone()),
+                        (idx.clone(), grouped.detach().clone())))
+        return idx, grouped
+
+    ops.fps, ops.ball_query_group = fps, ball_query_group
+
+    def restore():
+        ops.fps, ops.ball_query_group = real_fps, real_bqg
+    return restore
+
+
+def check_group_calls(ops, records, where, want):
+    """Each recorded fps / ball_query_group call of a main-path step against
+    its plain version on the same inputs, on the card: bitwise (indices and
+    grouped xyz). `want` is the launch count of each kernel in that step,
+    which the number of recorded calls must equal."""
+    import torch
+    plain = {"fps": ops.fps_plain, "ball_query_group": ops.ball_query_group_plain}
+    calls = {name: sum(r[0] == name for r in records) for name in plain}
+    check(calls == want, f"{where}: recorded calls {calls}, launches {want}")
+    for i, (name, args, outs) in enumerate(records):
+        with torch.no_grad():
+            ref = plain[name](*args)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        for what, a, b in zip(("indices", "grouped"), outs, ref):
+            check(torch.equal(a, b), f"{where}: {name} call {i} {shapes}: "
+                  f"{what} differ from the plain version")
+    return calls
+
+
 def fused_forward_phase(cfg, pc, model, ep, counted, card):
     """Phase 7: the fused_sa=True eval forward beside phase 3's."""
     import torch
@@ -252,6 +335,57 @@ def fused_forward_phase(cfg, pc, model, ep, counted, card):
         peak_mem_bytes=peak_f), records
 
 
+def profile_step(run, expect, step_ms):
+    """torch.profiler over one call of `run` (after one warm-up call): the
+    kernel time of the call, its busy share against `step_ms` (the same
+    work's unprofiled wall time: the profiler slows the host, not the
+    kernels), the top ops and the hand-written kernels' launches seen, which
+    make the profile complete if they equal `expect` ({kernel: launches}).
+    Returns (summary dict, the profiler's table)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traced.append(
+                     p.key_averages())) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    check(len(traced) == 1, "the profiler traced no step")
+    # kernels only: a user annotation (the optimizer's step range, the
+    # profiler's step range) also shows as a device event spanning its
+    # kernels
+    events = [e for e in traced[0] if not e.is_user_annotation
+              and not e.key.startswith("ProfilerStep")]
+    dev_ms = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    ops_ms = sorted(((e.self_device_time_total / 1e3, e.key)
+                     for e in events if e.device_type == DeviceType.CPU
+                     and e.self_device_time_total > 0), reverse=True)
+    kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and re.search(r"::(fused_mlp|ball_query|fps)_kernel\b",
+                                 e.key)), reverse=True)
+    seen = {name: sum(c for _, c, k in kern
+                      if re.search(rf"::{name}\b", k)) for name in expect}
+    complete = seen == expect
+    line = (f"device kernel time {dev_ms:.3f} ms against {step_ms:.3f} "
+            f"ms/step unprofiled (busy share {dev_ms / step_ms:.3f}); "
+            f"hand-written kernel launches seen {seen} ("
+            f"{'complete' if complete else 'INCOMPLETE: events lost'}); "
+            f"top ops " + "; ".join(
+                [f"{k[:40]} {v:.2f}" for v, k in ops_ms[:6]]
+                + [f"{k[:40]} {v:.2f} x{c}" for v, c, k in kern[:3]]))
+    return (dict(device_ms=dev_ms, step_ms=step_ms,
+                 busy_share=dev_ms / step_ms, by_op=ops_ms[:12],
+                 kernels=kern, kernel_launches_seen=seen, complete=complete,
+                 line=line),
+            traced[0].table(sort_by="self_device_time_total", row_limit=25))
+
+
 def route_probe(cfg, labeled, fused: bool):
     """A train-mode forward of fresh seeded weights with the step's dropout
     generator, and the gradients of a fixed linear functional of the
@@ -276,8 +410,6 @@ def route_probe(cfg, labeled, fused: bool):
 def train_phase(cfg, dev, counted, card):
     """Phase 8: the supervised train step on both routes."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
     from omni_pq_torch import ops
     from omni_pq_torch.config import SCANNET_MEAN_SIZES
     from omni_pq_torch.data import make_batch
@@ -302,24 +434,30 @@ def train_phase(cfg, dev, counted, card):
             dxyz, dnew = real_bwd(idx, g, n)
             bwd_norms.append(dxyz.norm())
             return dxyz, dnew
-        stats, peak = [], 0
+        stats, peak, group_records = [], 0, []
         for i in range(3):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             if i == 0:
                 reset_launch_counts(counted)
                 bq_module.ball_query_group_backward = spy
-                restore = (record_fused_calls(ops, records)
-                           if route == "fused" else (lambda: None))
+                restores = [record_group_calls(ops, group_records)] + (
+                    [record_fused_calls(ops, records)]
+                    if route == "fused" else [])
             try:
                 st = step(state, labeled, generator=gen)
                 torch.cuda.synchronize()
             finally:
                 if i == 0:
                     bq_module.ball_query_group_backward = real_bwd
-                    restore()
+                    for restore in reversed(restores):
+                        restore()
             if i == 0:
                 launches = fused_launch_counts(counted)
+                check_group_calls(ops, group_records, f"train {route} step",
+                                  {k: launches[k]
+                                   for k in ("fps", "ball_query_group")})
+                del group_records
             else:
                 peak = max(peak, torch.cuda.max_memory_allocated(dev))
             stats.append({k: float(v) for k, v in st.items()})
@@ -336,7 +474,9 @@ def train_phase(cfg, dev, counted, card):
                              stats=stats, launches=launches, peak=peak,
                              bqg_backward_dxyz_norm=[float(v)
                                                      for v in bwd_norms])
-        print(f"[train] {route}: step launches {launches}; "
+        print(f"[train] {route}: step launches {launches}, every fps and "
+              f"ball_query_group call of the first step equal to its plain "
+              f"version bitwise; "
               f"total_loss {[round(s['total_loss'], 4) for s in stats]} "
               f"grad_norm {[round(s['grad_norm'], 3) for s in stats]}; "
               f"ball-query-group backward |d vote_xyz| "
@@ -385,58 +525,16 @@ def train_phase(cfg, dev, counted, card):
     lines = [card]
     top = {}
     for route, r in routes.items():
-        # one step to warm the profiler up, then the recorded step
-        traced = []
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                     on_trace_ready=lambda p: traced.append(
-                         p.key_averages())) as prof:
-            for _ in range(2):
-                r["step"](r["state"], labeled, generator=r["gen"])
-                torch.cuda.synchronize()
-                prof.step()
-        check(len(traced) == 1, f"{route}: the profiler traced no step")
-        # kernels only: a user annotation (the optimizer's step range, the
-        # profiler's step range) also shows as a device event spanning its
-        # kernels
-        events = [e for e in traced[0] if not e.is_user_annotation
-                  and not e.key.startswith("ProfilerStep")]
-        dev_ms = sum(e.self_device_time_total for e in events
-                     if e.device_type == DeviceType.CUDA) / 1e3
-        ops_ms = sorted(((e.self_device_time_total / 1e3, e.key)
-                         for e in events if e.device_type == DeviceType.CPU
-                         and e.self_device_time_total > 0), reverse=True)
-        kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                       for e in events if e.device_type == DeviceType.CUDA
-                       and ("fused_mlp" in e.key or "ball_query" in e.key
-                            or "fps_kernel" in e.key)), reverse=True)
-        # the profile is complete if it saw every hand-written kernel
-        # launch of the step (a train-mode fused call is L+1 launches)
         expect = {"fps_kernel": r["launches"]["fps"],
                   "ball_query_kernel": r["launches"]["ball_query_group"],
                   "fused_mlp_kernel": sum(len(rec["weights"]) + 1
                                           for rec in records)
                   if route == "fused" else 0}
-        seen = {name: sum(c for _, c, k in kern if k.startswith(
-            f"(anonymous namespace)::{name}(")) for name in expect}
-        complete = seen == expect
-        # busy share: the profiled step's kernel time over the unprofiled
-        # step's wall time (the profiler slows the host, not the kernels)
-        step_ms = float(np.mean(times[route]))
-        top[route] = dict(device_ms=dev_ms, step_ms=step_ms,
-                          busy_share=dev_ms / step_ms, by_op=ops_ms[:12],
-                          kernels=kern, kernel_launches_seen=seen,
-                          complete=complete)
-        print(f"[train] {route} profile of one step: device kernel time "
-              f"{dev_ms:.3f} ms against {step_ms:.3f} ms/step unprofiled "
-              f"(busy share {dev_ms / step_ms:.3f}); hand-written kernel "
-              f"launches seen {seen} ("
-              f"{'complete' if complete else 'INCOMPLETE: events lost'}); "
-              f"top ops " + "; ".join(
-                  [f"{k[:40]} {v:.2f}" for v, k in ops_ms[:6]]
-                  + [f"{k[:40]} {v:.2f} x{c}" for v, c, k in kern[:3]]))
-        lines.append(f"--- {route} step\n" + traced[0].table(
-            sort_by="self_device_time_total", row_limit=25))
+        top[route], table = profile_step(
+            lambda: r["step"](r["state"], labeled, generator=r["gen"]),
+            expect, float(np.mean(times[route])))
+        print(f"[train] {route} profile of one step: " + top[route]["line"])
+        lines.append(f"--- {route} step\n" + table)
         print(f"[train] {route}: {np.mean(times[route]):.3f} ms/step "
               f"({times[route]}), peak memory "
               f"{r['peak'] / 2**30:.2f} GiB [{card}]")
@@ -454,13 +552,15 @@ def train_phase(cfg, dev, counted, card):
                         for k, v in routes.items()}), records
 
 
-def fused_kernel_rows(records, mode):
+def fused_kernel_rows(records, mode, names=None):
     """Phase 9: the kernel against its plain version on recorded inputs
-    (one record per fused SA layer, in sa1..sa4 order)."""
+    (one record per fused SA layer call, named sa1..sa4 in call order unless
+    `names` are given)."""
     import torch
     from omni_pq_torch.ops.fused_mlp import kernel_mlp_pool, plain_mlp_pool
+    names = names or [f"sa{i + 1}" for i in range(len(records))]
     rows = []
-    for i, rec in enumerate(records):
+    for name, rec in zip(names, records):
         args = (rec["grouped"], rec["weights"], rec["scales"],
                 rec["biases"], rec["ra_means"], rec["ra_vars"], rec["train"],
                 rec["eps"])
@@ -470,15 +570,15 @@ def fused_kernel_rows(records, mode):
             want = plain_mlp_pool(*args)
         errs = {}
         worst, ok = max_violation(got[0], want[0], **FUSED_TOL)
-        check(ok, f"fused_mlp {mode} sa{i + 1}: pooled |diff| {worst}")
+        check(ok, f"fused_mlp {mode} {name}: pooled |diff| {worst}")
         errs["pooled"] = worst
         for j, (a, b) in enumerate(zip(got[1], want[1])):
             worst, ok = max_violation(a, b, **FUSED_TOL)
-            check(ok, f"fused_mlp {mode} sa{i + 1}: mean {j} |diff| {worst}")
+            check(ok, f"fused_mlp {mode} {name}: mean {j} |diff| {worst}")
             errs[f"mean{j}"] = worst
         for j, (a, b) in enumerate(zip(got[2], want[2])):
             worst, ok = max_violation(a, b, **FUSED_VAR_TOL)
-            check(ok, f"fused_mlp {mode} sa{i + 1}: var {j} |diff| {worst}")
+            check(ok, f"fused_mlp {mode} {name}: var {j} |diff| {worst}")
             errs[f"var{j}"] = worst
         Bx, S, K, C0 = rec["grouped"].shape
         chans = [C0] + [w.shape[1] for w in rec["weights"]]
@@ -494,13 +594,286 @@ def fused_kernel_rows(records, mode):
                       + Bx * S * chans[-1]
                       + (2 * sum(chans[1:]) if rec["train"] else 0))
         bnd, by = bound_ms(nbytes, one)
-        rows.append(dict(call=f"sa{i + 1}", mode=mode,
+        rows.append(dict(call=name, mode=mode,
                          shape=f"B{Bx} S{S} K{K} C{'/'.join(map(str, chans))}",
                          max_abs_err=max(errs.values()), errs=errs,
                          chain_flops=one, kernel_flops=ran,
                          chains_run=ran / one, bound_ms=bnd, bound_by=by,
                          args=args))
     return rows
+
+
+def feats_phase(cfg, ep, card):
+    """Phase 11: ball_query_group_feats on the card at the shapes where it
+    would replace the SA layers' grouping (sa2-sa4, vote aggregation), on
+    phase 3's own points, centres and input features."""
+    import torch
+    from omni_pq_torch import ops
+    radii, nsamp = cfg.backbone_radii, cfg.backbone_nsamples
+    calls = [(f"sa{i + 1}", ep[f"sa{i}_xyz"], ep[f"sa{i + 1}_xyz"],
+              ep[f"sa{i}_features"], radii[i], nsamp[i]) for i in (1, 2, 3)]
+    calls.append(("vote_aggregation", ep["vote_xyz"],
+                  ep["aggregated_vote_xyz"], ep["vote_features"], 0.3,
+                  cfg.vote_aggregation_nsample))
+    gen = torch.Generator(ep["vote_xyz"].device).manual_seed(SEED)
+    rows = []
+    for name, x, ctr, f, r, k in calls:
+        x, ctr, f = x.contiguous(), ctr.contiguous(), f.contiguous()
+        variants = [("float32", f)] + ([("bfloat16", f.bfloat16())]
+                                       if name == "sa3" else [])
+        for dtype, feats in variants:
+            got = ops.ball_query_group_feats(r, k, x, ctr, feats)
+            torch.cuda.synchronize()
+            want = ops.ball_query_group_feats_plain(r, k, x, ctr, feats)
+            for what, a, b in zip(("idx", "grouped", "features"), got, want):
+                check(torch.equal(a, b), f"ball_query_group_feats {name} "
+                      f"{dtype}: {what} differs from the plain version")
+            del got, want
+        bwd_gap = None
+        if name in ("sa3", "vote_aggregation"):
+            # the backward on the card against the plain backward on a CPU
+            # copy; index_add_ adds in no fixed order on the card
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (x, ctr, f)]
+            _, grouped, gfeat = ops.ball_query_group_feats(r, k, *leaves)
+            cots = [torch.randn(t.shape, generator=gen, device=t.device)
+                    for t in (grouped, gfeat)]
+            torch.autograd.backward([grouped, gfeat], cots)
+            cpu = [t.detach().cpu().clone().requires_grad_()
+                   for t in (x, ctr, f)]
+            _, grouped, gfeat = ops.ball_query_group_feats(r, k, *cpu)
+            torch.autograd.backward([grouped, gfeat],
+                                    [c.cpu() for c in cots])
+            bwd_gap = max(float((a.grad.cpu() - b.grad).abs().max())
+                          / float(b.grad.norm())
+                          for a, b in zip(leaves, cpu))
+            check(bwd_gap <= FEATS_BWD_TOL, f"ball_query_group_feats {name}"
+                  f" backward: {bwd_gap:.2e} of the gradient norm")
+            del leaves, cpu, grouped, gfeat, cots
+        Bx, N, _ = x.shape
+        S, C = ctr.shape[1], f.shape[2]
+        idx, _ = ops.ball_query_group_plain(r, k, x, ctr)
+        full = (idx[..., 1:] > idx[..., :-1]).all(-1)
+        scanned = int(torch.where(full, idx[..., -1].long() + 1, N).sum())
+        # feature bytes: the distinct rows idx names, read once, and the
+        # (B,S,K,C) output written once
+        row_bytes = C * f.element_size()
+        rows_read = torch.unique(idx.long() + N * torch.arange(
+            Bx, device=idx.device)[:, None, None]).numel()
+        nbytes = (Bx * N * 12 + Bx * S * 12 + rows_read * row_bytes
+                  + Bx * S * k * (4 + 12 + row_bytes))
+        bnd, by = bound_ms(nbytes, scanned * BQ_OPS_PER_POINT)
+
+        def composition():
+            i, g = ops.ball_query_group(r, k, x, ctr)
+            return g, ops.group_points(f, i)
+        row = dict(call=name, shape=f"B{Bx} N{N} S{S} K{k} C{C} r{r}",
+                   max_abs_err=0, bound_ms=bnd, bound_by=by,
+                   feature_rows_read=rows_read, feature_rows=Bx * N,
+                   backward_gap_of_norm=bwd_gap,
+                   ms=time_ms(lambda: ops.ball_query_group_feats(
+                       r, k, x, ctr, f), reps=10),
+                   plain_ms=time_ms(lambda: ops.ball_query_group_feats_plain(
+                       r, k, x, ctr, f), reps=2),
+                   composition_ms=time_ms(composition, reps=10))
+        rows.append(row)
+        print(f"[feats] {name:16s} {row['shape']:32s} kernel "
+              f"{row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  "
+              f"ball_query_group + group_points {row['composition_ms']:.4f} "
+              f"ms  bound {bnd:.4f} ms ({by})  [{card}]")
+    print(f"[feats] ball_query_group_feats equal to its plain version "
+          f"bitwise at {len(rows)} shapes (float32) and sa3 (bfloat16); "
+          f"backward within {FEATS_BWD_TOL} of the gradient norm at sa3 and "
+          f"vote_aggregation")
+    return rows
+
+
+def semi_phase(cfg, dev, card, sup_stat_names):
+    """Phase 12: the semi-supervised step (TrainFlags(): EMA teacher +
+    gamma mixture, fixed criterion) at full width on 3 labeled + 3 weak
+    scenes, both routes, then one step with the fitted mixture and one with
+    the ARKit loss."""
+    import torch
+    from omni_pq_torch import ops
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.data import make_batch
+    from omni_pq_torch.infer import build_model
+    from omni_pq_torch.train import (OptimizerConfig, TrainFlags, TrainState,
+                                     batch_to_tensors, make_train_step)
+    labeled, weak = (batch_to_tensors(make_batch(
+        np.random.default_rng(SEED + i), TRAIN_B, cfg.num_points), dev)
+        for i in (0, 1))
+    counted = {"fps": ops.fps, "ball_query_group": ops.ball_query_group,
+               "fused_mlp_pool": ops.fused_mlp_pool,
+               "ball_query_group_feats": ops.ball_query_group_feats}
+    want_names = set(sup_stat_names) | SEMI_STATS
+    flags = TrainFlags()
+
+    def stepper(model, state, step_flags, gen):
+        step = make_train_step(model, model.cfg, SCANNET_MEAN_SIZES,
+                               step_flags)
+        return lambda: step(state, labeled, weak, generator=gen,
+                            consistency_weight=CONSISTENCY_WEIGHT)
+    routes, records = {}, []
+    for route in ("unfused", "fused"):
+        model = build_model(dataclasses.replace(cfg, fused_sa=route == "fused"),
+                            dev, seed=SEED)
+        state = TrainState(model, OptimizerConfig(), ema=True)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        run = stepper(model, state, flags, gen)
+        teacher = state.ema_model
+        stats, peak, group_records = [], 0, []
+        for i in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            if i == 0:
+                before = {n: t.detach().clone()
+                          for n, t in teacher.state_dict().items()}
+                reset_launch_counts(counted)
+                restores = [record_group_calls(ops, group_records)] + (
+                    [record_fused_calls(ops, records)]
+                    if route == "fused" else [])
+            try:
+                st = run()
+                torch.cuda.synchronize()
+            finally:
+                if i == 0:
+                    for restore in reversed(restores):
+                        restore()
+            if i == 0:
+                launches = fused_launch_counts(counted)
+                # student (B=6, train) and teacher (B=6, train, no grad)
+                check_group_calls(ops, group_records, f"semi {route} step",
+                                  {k: launches[k]
+                                   for k in ("fps", "ball_query_group")})
+                del group_records
+                # the EMA rule of step 1 (alpha = min(1 - 1/2, decay))
+                alpha = float(min(np.float32(1.0) - np.float32(1.0)
+                                  / (np.float32(state.step) + 1),
+                                  np.float32(flags.ema_decay)))
+                student = dict(model.named_parameters())
+                with torch.no_grad():
+                    ema_gap = max(float((e - (alpha * before[n] + (1 - alpha)
+                                              * student[n])).abs().max())
+                                  for n, e in teacher.named_parameters())
+                ema_moved = sum(not torch.equal(e, before[n])
+                                for n, e in teacher.named_parameters())
+                bn_moved = sum(not torch.equal(b, before[n])
+                               for n, b in teacher.named_buffers()
+                               if n.endswith(("running_mean",
+                                              "running_var")))
+                check(ema_gap <= 1e-6 and ema_moved > 0,
+                      f"{route}: teacher parameters off the EMA rule by "
+                      f"{ema_gap:.2e} ({ema_moved} tensors moved)")
+                check(bn_moved > 0 and not teacher.training,
+                      f"{route}: the teacher's BN running stats did not "
+                      "move, or it stayed in train mode")
+                del before, student
+            else:
+                peak = max(peak, torch.cuda.max_memory_allocated(dev))
+            stats.append({k: float(v) for k, v in st.items()})
+            check(all(np.isfinite(v) for v in stats[-1].values()),
+                  f"semi {route} step {i + 1}: non-finite stats")
+        check(set(stats[0]) == want_names,
+              f"semi {route}: stats {sorted(set(stats[0]) ^ want_names)} "
+              "differ from the JAX step's set")
+        want = {"fps": 12, "ball_query_group": 10,
+                "fused_mlp_pool": 8 if route == "fused" else 0,
+                "ball_query_group_feats": 0}
+        check(launches == want, f"semi {route} step launches {launches}, "
+                                f"expected {want}")
+        routes[route] = dict(model=model, state=state, gen=gen, run=run,
+                             stats=stats, launches=launches, peak=peak,
+                             ema_rule_gap=ema_gap, teacher_bn_moved=bn_moved)
+        print(f"[semi] {route}: step launches {launches}, every fps and "
+              f"ball_query_group call of the first step (student and "
+              f"teacher) equal to its plain version bitwise; total_loss "
+              f"{[round(x['total_loss'], 4) for x in stats]} grad_norm "
+              f"{[round(x['grad_norm'], 3) for x in stats]} "
+              f"weighted_consistency_loss "
+              f"{[round(x['weighted_consistency_loss'], 5) for x in stats]}"
+              f" gamma_engaged_frac "
+              f"{[x['gamma_engaged_frac'] for x in stats]}; teacher on the "
+              f"EMA rule within {ema_gap:.1e}, {bn_moved} BN stats moved")
+    names = ([f"student sa{i}" for i in range(1, 5)]
+             + [f"teacher sa{i}" for i in range(1, 5)])
+    check(len(records) == 8, f"recorded {len(records)} fused calls in the "
+                             "fused semi step, expected 8")
+    frows = fused_kernel_rows(records, "train", names)
+    for row in frows:
+        row.pop("args")
+    del records
+    print(f"[semi] the fused step's 8 train-mode calls (student and "
+          f"teacher, B={2 * TRAIN_B}) equal to their plain version within "
+          f"{FUSED_TOL} (batch variances {FUSED_VAR_TOL}); largest |diff| "
+          f"{max(r['max_abs_err'] for r in frows):.3e}")
+    # one step each with the fitted mixture and with the ARKit loss
+    u = routes["unfused"]
+    extra = {}
+    for tag, kw in (("use_fitted_mixture", dict(use_fitted_mixture=True)),
+                    ("arkit", dict(arkit=True, lambda_arkit_pc_loss=0.1))):
+        st = stepper(u["model"], u["state"], TrainFlags(**kw), u["gen"])()
+        extra[tag] = {k: float(v) for k, v in st.items()}
+        check(all(np.isfinite(v) for v in extra[tag].values()),
+              f"semi step with {tag}: non-finite stats")
+    check({"arkit_pc_loss", "arkit_collisions"} <= set(extra["arkit"]),
+          "the ARKit step has no arkit_pc_loss / arkit_collisions")
+    print(f"[semi] use_fitted_mixture step: metric_* "
+          f"{[round(extra['use_fitted_mixture'][k], 5) for k in ('metric_normal', 'metric_vertical', 'metric_size', 'metric_score')]}"
+          f", engaged {extra['use_fitted_mixture']['gamma_engaged_frac']}; "
+          f"arkit step: arkit_pc_loss {extra['arkit']['arkit_pc_loss']:.5f},"
+          f" arkit_collisions {extra['arkit']['arkit_collisions']}; all "
+          f"stats finite")
+    # warmed ms/step in turns: unfused, fused, fused, unfused
+    times = {"unfused": [], "fused": []}
+    for route in ("unfused", "fused", "fused", "unfused"):
+        times[route].append(wall_ms_per_call(routes[route]["run"], reps=3))
+    lines = [card]
+    top = {}
+    for route, r in routes.items():
+        expect = {"fps_kernel": 12, "ball_query_kernel": 10,
+                  "fused_mlp_kernel": 8 * 4 if route == "fused" else 0}
+        top[route], table = profile_step(r["run"], expect,
+                                         float(np.mean(times[route])))
+        lines.append(f"--- semi-supervised {route} step\n" + table)
+        print(f"[semi] {route} profile of one step: " + top[route]["line"])
+        print(f"[semi] {route}: {np.mean(times[route]):.3f} ms/step "
+              f"({times[route]}), peak memory {r['peak'] / 2**30:.2f} GiB "
+              f"[{card}]")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_semi_profile.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    # random weights leave the gamma criterion idle (no quad passes its
+    # gates): one more default step with the student's last quad head made
+    # near-constant (every quad confident, normals along +x, wide and tall,
+    # centred on its query point), which engages it on the synthetic rooms'
+    # x walls, as tests/test_torch_port_semi.py rigs the small model
+    head = u["model"].prediction_quad_heads[-1]
+    with torch.no_grad():
+        for name, bias in (("quad_scores_head", [0.0, 3.0]),
+                           ("normal_vector_head", [1.0, 0.0, 0.0]),
+                           ("size_head", [10.0, 10.0]),
+                           ("center_head", [0.0, 0.0, 0.0])):
+            conv = getattr(head, name)
+            conv.weight.mul_(0.01)
+            conv.bias.copy_(torch.tensor(bias))
+    extra["rigged_quad_head"] = {k: float(v) for k, v in u["run"]().items()}
+    rigged = extra["rigged_quad_head"]
+    check(all(np.isfinite(v) for v in rigged.values())
+          and rigged["gamma_engaged_frac"] > 0,
+          f"semi step with the rigged quad head: gamma_engaged_frac "
+          f"{rigged['gamma_engaged_frac']}, stats finite: "
+          f"{all(np.isfinite(v) for v in rigged.values())}")
+    print(f"[semi] rigged quad head step: gamma_engaged_frac "
+          f"{rigged['gamma_engaged_frac']}, gamma_mixture_filter_loss "
+          f"{rigged['gamma_mixture_filter_loss']:.5f}, metric_* "
+          f"{[round(rigged[k], 5) for k in ('metric_normal', 'metric_vertical', 'metric_size', 'metric_score')]}"
+          f"; all stats finite")
+    return dict(batch=f"{TRAIN_B}+{TRAIN_B}", step_ms=times, profile=top,
+                fused_calls=frows, extra_steps=extra,
+                routes={k: {kk: v[kk] for kk in (
+                    "stats", "launches", "peak", "ema_rule_gap",
+                    "teacher_bn_moved")} for k, v in routes.items()})
 
 
 def main() -> int:
@@ -763,6 +1136,16 @@ def main() -> int:
               f"{row['bound_ms']:.3f} ms ({row['bound_by']}, one chain; "
               f"the kernel runs {row['chains_run']:.2f} chains)  [{card}]")
     rows["fused_mlp_pool"] = frows
+
+    # -- 11. ball_query_group_feats at the SA and vote-aggregation shapes
+    rows["ball_query_group_feats"] = feats_phase(cfg, ep, card)
+
+    # -- 12. the semi-supervised step
+    del ep_plain
+    report["semi"] = semi_phase(
+        cfg, dev, card, report["train"]["routes"]["unfused"]["stats"][0])
+    feats_launches = report["semi"]["routes"]["unfused"]["launches"][
+        "ball_query_group_feats"]
     report["kernel_rows"] = rows
 
     summary = []
@@ -795,6 +1178,19 @@ def main() -> int:
         "plain_ms": sum(r["plain_ms"] for r in erows),
         "bound_ms": sum(r["bound_ms"] for r in erows),
         "bound_by": max(erows, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": None, "matched": True})
+    # on no model path: its launches are the semi-supervised step's (0);
+    # times and bounds are phase 11's four shapes
+    frows11 = rows["ball_query_group_feats"]
+    summary.append({
+        "name": "ball_query_group_feats", "route": "cuda",
+        "source": "omni_pq_torch/csrc/ball_query.cu",
+        "replaces": "omni_pq_tpu/ops/ball_query.py:499",
+        "launches": feats_launches, "max_abs_err": 0,
+        "ms": sum(r["ms"] for r in frows11),
+        "plain_ms": sum(r["plain_ms"] for r in frows11),
+        "bound_ms": sum(r["bound_ms"] for r in frows11),
+        "bound_by": max(frows11, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None, "matched": True})
     report["kernels"] = summary
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -1,18 +1,23 @@
-"""Training CLI, supervised baseline (the port of `omni_pq_tpu/cli/train.py`
-restricted to its supervised flags).
+"""Training CLI (the port of `omni_pq_tpu/cli/train.py`: its loop and its
+supervised and semi-supervised flags).
 
 The flags below keep the JAX CLI's names, defaults and meanings, except that
---max_epoch counts plain epochs: the JAX CLI divides it (and its print,
-save and val frequencies) by --end_proportion, the labeled share of ScanNet,
-which this CLI has no use for until the ScanNet loader is ported; the
-port's --max_epoch N is the JAX CLI's --max_epoch N --end_proportion 1.0.
-Training is the `sup` baseline of docs/SEMI_SUP.md: labeled batches only,
-no EMA teacher, no gamma-mixture or ARKit loss. Every step's scalars go to
+--max_epoch and --consistency_rampup count plain epochs: the JAX CLI divides
+them (and its print, save and val frequencies) by --end_proportion, the
+labeled share of ScanNet, which this CLI has no use for until the ScanNet
+loader is ported; the port's --max_epoch N is the JAX CLI's --max_epoch N
+--end_proportion 1.0. Without --ema, --gamma_mixture and --arkit, training
+is the `sup` baseline of docs/SEMI_SUP.md (labeled batches only); with any
+of them each step also takes a weak batch from an endless stream of
+synthetic scenes (seed --rng_seed + 1), as the JAX CLI does, and the
+consistency loss is weighted by the sigmoid ramp of --consistency_weight
+over --consistency_rampup epochs. Every step's scalars go to
 <log_dir>/metrics.jsonl as {"step", "time", "train/<stat>": value}.
-Checkpoints and the in-loop evaluation are not ported yet. Runs on the card
-unless --device cpu is given.
+Checkpoints, the in-loop evaluation and the ScanNet / ARKitScenes loaders
+are not ported yet. Runs on the card unless --device cpu is given.
 
-Run:  python -m omni_pq_torch.cli.train --synthetic_data --pc_loss
+Run:  python -m omni_pq_torch.cli.train --synthetic_data --pc_loss \
+          --ema --gamma_mixture
       (add --smoke --num_point 512 --device cpu for a tiny CPU run)
 """
 from __future__ import annotations
@@ -39,6 +44,24 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--clip_norm", default=0.1, type=float)
     parser.add_argument("--step_freq", type=int, default=1)
     parser.add_argument("--pc_loss", action="store_true")
+    # weak losses (the JAX CLI's, cli/args.py:55-67)
+    parser.add_argument("--gamma_mixture", action="store_true")
+    parser.add_argument("--ema", action="store_true")
+    parser.add_argument("--arkit", action="store_true",
+                        help="ARKit pc loss on the weak half (with "
+                             "--synthetic_data the weak scenes are synthetic)")
+    parser.add_argument("--ema_decay", type=float, default=0.999)
+    parser.add_argument("--consistency_weight", type=float, default=0.05)
+    parser.add_argument("--consistency_rampup", type=int, default=1)
+    parser.add_argument("--lambda_metric_normal", type=float, default=0.0010)
+    parser.add_argument("--lambda_metric_vertical", type=float,
+                        default=0.0010)
+    parser.add_argument("--lambda_metric_size", type=float, default=0.0010)
+    parser.add_argument("--lambda_metric_score", type=float, default=0.0010)
+    parser.add_argument("--lambda_arkit_pc_loss", type=float, default=0.0)
+    parser.add_argument("--use_fitted_mixture", action="store_true",
+                        help="label pseudo points with the EM-fitted mixture "
+                             "instead of the reference's fixed initial one")
     parser.add_argument("--near_threshold", type=float, default=0.3,
                         help="GT assignment NEAR radius in meters "
                              "(reference fixed 0.3, loss_helper_pq.py:17)")
@@ -64,10 +87,10 @@ def main(argv=None):
     import torch
 
     from ..config import SCANNET_MEAN_SIZES, SMOKE_MODEL, ModelConfig
-    from ..data import Loader, SyntheticDataset
+    from ..data import Loader, SyntheticDataset, endless
     from ..infer import build_model, resolve_device
     from ..train import (OptimizerConfig, TrainFlags, batch_to_tensors,
-                         TrainState, make_train_step)
+                         TrainState, consistency_weight, make_train_step)
 
     device = resolve_device(args.device)
     cfg = ModelConfig(num_points=args.num_point,
@@ -81,11 +104,22 @@ def main(argv=None):
         weight_decay=args.weight_decay, clip_norm=args.clip_norm,
         total_steps=args.max_epoch * max(len(loader), 1),
         step_freq=args.step_freq)
-    state = TrainState(model, opt_cfg)
-    flags = TrainFlags(ema=False, gamma_mixture=False, arkit=False,
-                       pc_loss=args.pc_loss,
-                       near_threshold=args.near_threshold,
-                       far_threshold=args.far_threshold)
+    state = TrainState(model, opt_cfg, ema=args.ema)
+    flags = TrainFlags(
+        ema=args.ema, gamma_mixture=args.gamma_mixture, arkit=args.arkit,
+        pc_loss=args.pc_loss, use_fitted_mixture=args.use_fitted_mixture,
+        ema_decay=args.ema_decay,
+        lambda_metric_normal=args.lambda_metric_normal,
+        lambda_metric_vertical=args.lambda_metric_vertical,
+        lambda_metric_size=args.lambda_metric_size,
+        lambda_metric_score=args.lambda_metric_score,
+        lambda_arkit_pc_loss=args.lambda_arkit_pc_loss,
+        near_threshold=args.near_threshold, far_threshold=args.far_threshold)
+    weak_iter = None
+    if flags.ema or flags.gamma_mixture or flags.arkit:
+        weak_iter = endless(Loader(
+            SyntheticDataset(32, args.num_point, seed=args.rng_seed + 1),
+            args.batch_size, seed=args.rng_seed + 1))
     train_step = make_train_step(model, cfg, SCANNET_MEAN_SIZES, flags)
     generator = torch.Generator(device).manual_seed(args.rng_seed + 123)
 
@@ -100,9 +134,14 @@ def main(argv=None):
         for epoch in range(1, args.max_epoch + 1):
             loader.set_epoch(epoch)
             tic = time.time()
+            cw = consistency_weight(epoch, args.consistency_weight,
+                                    args.consistency_rampup)
             for batch in loader:
+                weak = (batch_to_tensors(next(weak_iter), device)
+                        if weak_iter is not None else None)
                 stats = train_step(state, batch_to_tensors(batch, device),
-                                   generator=generator)
+                                   weak, generator=generator,
+                                   consistency_weight=cw)
                 last = {k: float(v) for k, v in stats.items()}
                 rec = {"step": state.step, "time": time.time(),
                        **{f"train/{k}": v for k, v in last.items()}}

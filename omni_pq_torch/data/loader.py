@@ -1,6 +1,7 @@
 """Batching for the train CLI: a shuffled epoch loader over a map-style
-dataset (the single-process part of `omni_pq_tpu/data/loader.py`; sharding
-across processes comes with data parallelism)."""
+dataset and the endless stream of weak batches (the single-process part of
+`omni_pq_tpu/data/loader.py`; sharding across processes comes with data
+parallelism)."""
 from __future__ import annotations
 
 from typing import Dict, Iterator
@@ -36,3 +37,15 @@ class Loader:
         for b in range(len(self)):
             chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
             yield collate([self.dataset[int(i)] for i in chunk])
+
+
+def endless(loader: Loader) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless reshuffling stream (weak batches, train.py:311-321): epoch
+    0, 1, 2, ... of `loader`, one after the other."""
+    if len(loader) == 0:
+        raise ValueError("endless: the loader yields no batch")
+    epoch = 0
+    while True:
+        loader.set_epoch(epoch)
+        yield from loader
+        epoch += 1

@@ -37,8 +37,10 @@ _SIGNATURES = {
              ctypes.c_int, ctypes.c_void_p]),
     "ball_query": ("ball_query_launch",
                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]),
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_void_p]),
     "fused_mlp": ("fused_mlp_launch",
                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -83,9 +85,10 @@ def build(names=tuple(_SIGNATURES)) -> dict:
         if target.exists():
             build_logs[name] = target.with_suffix(".log").read_text()
             continue
+        nvcc = _nvcc()  # before the temporary file, which a raise would leak
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)

@@ -14,7 +14,10 @@ another order than cuBLAS: pooled outputs and batch means within 1e-4 abs +
 rel of the plain version, batch variances within 1e-4 rel + 1e-5 abs; its
 train stats are bitwise the same from run to run. The ball-query-group
 backward on the card equals the CPU's to 1e-5 (index_add_ adds in no fixed
-order on the card).
+order on the card). `ball_query_group_feats` (its feature rows a byte copy)
+equals its plain version bitwise in float32 and bfloat16, and its backward
+the CPU's to 1e-6 of the gradient's norm. One full-width semi-supervised step runs on the card
+with finite stats and the launch counts of its two forwards.
 """
 import dataclasses
 
@@ -267,3 +270,83 @@ def test_fused_forward_and_train_step_on_card(dev):
     for k in ("total_loss", "grad_norm"):
         torch.testing.assert_close(stats[1][k], stats[0][k], rtol=1e-3,
                                    atol=1e-4)
+
+
+# (N, S, K, C, dtype, element offset of the features' storage): every
+# vector width of the row copy (16, 8, 4, 2 bytes), no-hit centres, K > 32
+FEATS_CASES = {
+    "c128_f32": (2000, 250, 16, 128, torch.float32, 0),
+    "c130_f32_k40": (2000, 250, 40, 130, torch.float32, 0),
+    "c7_f32_offset": (800, 64, 16, 7, torch.float32, 1),
+    "c64_bf16": (2000, 250, 8, 64, torch.bfloat16, 0),
+    "c5_bf16_offset": (600, 40, 8, 5, torch.bfloat16, 1),
+}
+
+
+def _feats_inputs(case, dev, seed=0):
+    n, s, k, c, dtype, offset = FEATS_CASES[case]
+    r = np.random.default_rng(seed)
+    xyz = r.uniform(size=(2, n, 3)) * 3
+    ctr = xyz[:, ::n // s][:, :s].copy()
+    ctr[:, ::5] += 50.0  # no hit: idx 0, feature row 0
+    store = torch.from_numpy(r.normal(size=2 * n * c + offset)).to(
+        device=dev, dtype=dtype)
+    feats = store[offset:].view(2, n, c)  # data `offset` elements in
+    return _cuda(xyz, dev), _cuda(ctr, dev), feats, k
+
+
+@pytest.mark.parametrize("case", sorted(FEATS_CASES))
+def test_ball_query_group_feats_kernel_equals_plain(dev, case):
+    x, c, f, k = _feats_inputs(case, dev)
+    before = ops.ball_query_group_feats.launches
+    got = ops.ball_query_group_feats(0.4, k, x, c, f)
+    torch.cuda.synchronize()
+    assert ops.ball_query_group_feats.launches == before + 1
+    want = ops.ball_query_group_feats_plain(0.4, k, x, c, f)
+    assert got[2].dtype == f.dtype
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (got[0][:, ::5] == 0).all()
+
+
+def test_ball_query_group_feats_backward_on_card_matches_cpu(dev):
+    x, c, f, k = _feats_inputs("c130_f32_k40", dev, seed=1)
+    r = np.random.default_rng(2)
+    g = r.normal(size=tuple(c.shape[:2]) + (k, 3))
+    gf = r.normal(size=tuple(c.shape[:2]) + (k, f.shape[2]))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [t.detach().to(d).requires_grad_() for t in (x, c, f)]
+        _, grouped, gfeat = ops.ball_query_group_feats(0.4, k, *leaves)
+        torch.autograd.backward([grouped, gfeat],
+                                [_cuda(g, dev).to(d), _cuda(gf, dev).to(d)])
+        grads.append([t.grad.cpu() for t in leaves])
+    # index_add_ adds in no fixed order on the card, and row 0 sums the
+    # 40 slots of every no-hit centre: hold each gradient to 1e-6 of its norm
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.norm())
+
+
+def test_full_width_semi_supervised_step_on_card(dev):
+    """TrainFlags() (ema + gamma mixture, fixed criterion) at the full
+    ModelConfig() width on 3 labeled + 3 weak scenes: finite stats, and the
+    student's and the teacher's forwards each launch 6 FPS and 5
+    ball-query-group kernels."""
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.train import (OptimizerConfig, TrainFlags, TrainState,
+                                     batch_to_tensors, make_train_step)
+    cfg = ModelConfig()
+    model = build_model(cfg, dev, seed=3)
+    state = TrainState(model, OptimizerConfig(), ema=True)
+    step = make_train_step(model, cfg, SCANNET_MEAN_SIZES, TrainFlags())
+    lab, weak = (batch_to_tensors(make_batch(np.random.default_rng(s), 3,
+                                             cfg.num_points), dev)
+                 for s in (4, 5))
+    gen = torch.Generator(dev).manual_seed(0)
+    ops.fps.launches = ops.ball_query_group.launches = 0
+    stats = step(state, lab, weak, generator=gen, consistency_weight=0.05)
+    torch.cuda.synchronize()
+    assert (ops.fps.launches, ops.ball_query_group.launches) == (12, 10)
+    for k, v in stats.items():
+        assert bool(torch.isfinite(v)), k
+    assert "weighted_consistency_loss" in stats and "gamma_engaged_frac" in stats

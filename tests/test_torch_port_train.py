@@ -350,12 +350,23 @@ def test_whole_supervised_step_matches_jax(jax_step):
 
 
 def test_eval_step_and_flags_the_step_does_not_support():
+    """Only a bfloat16 teacher is refused; the semi-supervised flags build
+    a step, which asks for the weak batch and the EMA replica it needs."""
     cfg = ModelConfig(num_points=512, **SMOKE_MODEL)
     model = build_model(cfg, "cpu", seed=9)
-    for flag in ("ema", "gamma_mixture", "arkit", "teacher_bf16"):
-        with pytest.raises(NotImplementedError, match=flag):
-            make_train_step(model, cfg, SCANNET_MEAN_SIZES,
-                            TrainFlags(**{**SUP, flag: True}))
+    with pytest.raises(NotImplementedError, match="teacher_bf16"):
+        make_train_step(model, cfg, SCANNET_MEAN_SIZES,
+                        TrainFlags(teacher_bf16=True))
+    batch = batch_to_tensors(make_batch(np.random.default_rng(11), 1, 512),
+                             "cpu")
+    for flag in ("ema", "gamma_mixture", "arkit"):
+        step = make_train_step(model, cfg, SCANNET_MEAN_SIZES,
+                               TrainFlags(**{**SUP, flag: True}))
+        with pytest.raises(ValueError, match="weak batch"):
+            step(TrainState(model, OptimizerConfig(), ema=True), batch)
+    with pytest.raises(ValueError, match="ema=True"):
+        make_train_step(model, cfg, SCANNET_MEAN_SIZES, TrainFlags())(
+            TrainState(model, OptimizerConfig()), batch, batch)
     state = TrainState(model, OptimizerConfig(), ema=True)
     pc = make_batch(np.random.default_rng(10), 1, 512)["point_clouds"]
     model.train()
@@ -395,3 +406,29 @@ def test_train_cli_smoke_on_cpu(tmp_path):
     assert json.loads((tmp_path / "config.json").read_text())["pc_loss"]
     with pytest.raises(SystemExit):
         train_cli.main(["--device", "cpu", "--log_dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("flags", [["--ema", "--gamma_mixture"],
+                                   ["--arkit", "--lambda_arkit_pc_loss",
+                                    "0.1"]])
+def test_semi_supervised_train_cli_smoke_on_cpu(tmp_path, flags):
+    """The semi-supervised flags: a weak synthetic batch each step, the EMA
+    teacher with --ema, and the losses' stats in the metrics."""
+    last = train_cli.main([
+        "--smoke", "--synthetic_data", "--num_point", "512", "--device",
+        "cpu", "--max_epoch", "1", "--batch_size", "8", "--rng_seed", "3",
+        "--log_dir", str(tmp_path), *flags])
+    recs = [json.loads(line) for line in
+            (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs] == list(range(1, 5))  # 32 scenes / 8
+    want = (["weighted_consistency_loss", "consistency_loss",
+             "gamma_mixture_filter_loss", "gamma_engaged_frac"]
+            if "--ema" in flags else ["arkit_pc_loss", "arkit_collisions"])
+    for r in recs:
+        for k in want + ["total_loss", "grad_norm"]:
+            assert np.isfinite(r[f"train/{k}"]), k
+    if "--ema" in flags:  # the ramp: epoch 1 of a 1-epoch rampup is full
+        assert recs[0]["train/weighted_consistency_loss"] == pytest.approx(
+            0.05 * recs[0]["train/consistency_loss"]
+            + 0.05 * recs[0]["train/quad_consistency_loss_sum"], rel=1e-5)
+    assert last["total_loss"] == recs[-1]["train/total_loss"]
