@@ -22,10 +22,17 @@ when every phase passed:
   5. every kernel against its plain version at each main-path shape, on the
      forward's own inputs: indices bitwise, grouped xyz exact.
   6. times, warmed up: each kernel and its plain version at each shape
-     (CUDA events), with the bound (the larger of bytes over 3.35 TB/s and
-     operations over 67 TFLOP/s float32); the forward in ms per batch and
+     (CUDA events), and the FPS and ball-query kernels' profiler device time
+     beside it (below ~0.1 ms the events time the wrapper's dispatch); each
+     FPS row's cluster size and device time a step; the bound (the larger
+     of bytes over 3.35 TB/s and operations over 67 TFLOP/s float32; the
+     ball query's counts the work of the chunk-skipping design: one box test
+     a centre and 32-point chunk, and the points of the chunks the box test
+     admits up to the K-th hit; rows of up to 2048 points, scanned whole,
+     only the points up to the K-th hit); the forward in ms per batch and
      scenes/s (host clock around synchronised calls); peak memory; a
-     torch.profiler breakdown of one forward.
+     torch.profiler breakdown of one forward. No kernel's time may read
+     below its bound.
   7. fused eval forward: ModelConfig(fused_sa=True), the same seed, weights
      and scenes: 4 fused_mlp_pool calls (sa1-sa4; vote_aggregation's 288
      wide chain stays unfused), sa1-4 and fp2 features within tolerance of
@@ -92,6 +99,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 FPS_OPS_PER_POINT = 10      # 3 sub, 3 mul, 2 add, 1 min, 1 compare
 BQ_OPS_PER_POINT = 9        # 3 sub, 3 mul, 2 add, 1 compare
+BQ_BOX_OPS = 18             # a box test: 6 sub, 6 max, 3 mul, 2 add, 1 compare
+# the kernels of each timed entry point, as torch.profiler names them (a
+# ball query call is the chunk-box pre-pass and the query)
+KERNEL_NAMES = {"fps": r"::fps_kernel\b",
+                "ball_query": r"::(ball_query|chunk_box)_kernel\b"}
 # fused SA-MLP vs its plain version: products summed in another order
 FUSED_TOL = dict(rtol=1e-4, atol=1e-4)       # pooled output, batch means
 FUSED_VAR_TOL = dict(rtol=1e-4, atol=1e-5)   # batch variances
@@ -169,6 +181,81 @@ def bound_ms(nbytes: float, nops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_ms(fn, pattern: str, reps: int = 10, tries: int = 3):
+    """The matching kernels' own time a call: for each kernel whose
+    torch.profiler name matches `pattern`, its mean over the launches traced
+    in `reps` warmed calls, summed over the kernels. The profiler may drop
+    some launches' records, now and then a whole window's (seen on the H100):
+    a window with none is traced again, up to `tries` times. None if every
+    window came back empty."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count
+                and re.search(pattern, e.key)]
+        if kern:
+            return sum(e.self_device_time_total / e.count for e in kern) / 1e3
+    return None
+
+
+def bq_work(radius, k, x, ctr, idx):
+    """The work of the ball query kernel on these inputs, as (box tests,
+    points tested). Rows the kernel does not scan whole (above
+    ops.ball_query.scan_max_points()): one box test a centre and
+    32-point chunk, and 32 points for each chunk whose box passes the test
+    against r2 itself, up to the chunk of the centre's K-th hit (the whole
+    row with fewer hits). Smaller rows: no box test, and every chunk up to
+    that of the K-th hit. `idx` is the plain version's result."""
+    import torch
+    from omni_pq_torch.ops.reference import radius_sq
+    Bx, N, _ = x.shape
+    nch = -(-N // 32)
+    scan_max = importlib.import_module(
+        "omni_pq_torch.ops.ball_query").scan_max_points()
+    # a centre with K hits has strictly increasing slots
+    full = (idx[..., 1:] > idx[..., :-1]).all(-1)
+    last = torch.where(full, idx[..., -1].long() // 32, nch - 1)
+    if N <= scan_max:
+        return 0, 32 * int((last + 1).sum())
+    # the partial last chunk repeats its last point: its box stays
+    rows = torch.cat([x, x[:, -1:].expand(Bx, nch * 32 - N, 3)], 1)
+    lo, hi = rows.view(Bx, nch, 32, 3).amin(2), rows.view(Bx, nch, 32, 3).amax(2)
+    cols = torch.arange(nch, device=x.device)
+    r2 = radius_sq(radius)
+    points = 0
+    for b in range(Bx):
+        c = ctr[b][:, None, :]
+        gap = torch.clamp(torch.maximum(lo[b][None] - c, c - hi[b][None]),
+                          min=0)
+        d2 = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]
+              + gap[..., 2] * gap[..., 2])
+        points += 32 * int(((d2 < r2) & (cols[None] <= last[b][:, None]))
+                           .sum())
+    return Bx * ctr.shape[1] * nch, points
+
+
+def bq_bound(radius, k, x, ctr, idx, out_bytes_per_slot, read_bytes=0):
+    """bound_ms() of a ball query call: the points, the box table, the
+    centres and `read_bytes` more read once, the (B,S,K) outputs written
+    once; bq_work's operations. Returns (ms, by, box tests, points)."""
+    Bx, N, _ = x.shape
+    S = ctr.shape[1]
+    tests, points = bq_work(radius, k, x, ctr, idx)
+    table = Bx * -(-N // 32) * 24 if tests else 0  # only rows with boxes
+    nbytes = (Bx * N * 12 + table + Bx * S * 12 + read_bytes
+              + Bx * S * k * out_bytes_per_slot)
+    return bound_ms(nbytes, tests * BQ_BOX_OPS + points * BQ_OPS_PER_POINT) + (
+        tests, points)
 
 
 def max_violation(got, want, rtol, atol):
@@ -653,16 +740,13 @@ def feats_phase(cfg, ep, card):
         Bx, N, _ = x.shape
         S, C = ctr.shape[1], f.shape[2]
         idx, _ = ops.ball_query_group_plain(r, k, x, ctr)
-        full = (idx[..., 1:] > idx[..., :-1]).all(-1)
-        scanned = int(torch.where(full, idx[..., -1].long() + 1, N).sum())
-        # feature bytes: the distinct rows idx names, read once, and the
-        # (B,S,K,C) output written once
+        # the query's bound plus the feature bytes: the distinct rows idx
+        # names, read once, and the (B,S,K,C) output written once
         row_bytes = C * f.element_size()
         rows_read = torch.unique(idx.long() + N * torch.arange(
             Bx, device=idx.device)[:, None, None]).numel()
-        nbytes = (Bx * N * 12 + Bx * S * 12 + rows_read * row_bytes
-                  + Bx * S * k * (4 + 12 + row_bytes))
-        bnd, by = bound_ms(nbytes, scanned * BQ_OPS_PER_POINT)
+        bnd, by, _, _ = bq_bound(r, k, x, ctr, idx, 4 + 12 + row_bytes,
+                                 rows_read * row_bytes)
 
         def composition():
             i, g = ops.ball_query_group(r, k, x, ctr)
@@ -1010,50 +1094,65 @@ def main() -> int:
               f"ball_query (idx only) {name}: indices differ")
         Bx, N, _ = x.shape
         S = ctr.shape[1]
-        # data-dependent work: a centre with K hits stops after its K-th
-        # hit (its slots are strictly increasing), any other scans all N
-        full = (idx_p[..., 1:] > idx_p[..., :-1]).all(-1)
-        scanned = torch.where(full, idx_p[..., -1].long() + 1, N).sum()
-        bnd, by = bound_ms(Bx * N * 12 + Bx * S * 12 + Bx * S * k * 16,
-                           int(scanned) * BQ_OPS_PER_POINT)
+        # data-dependent work of the chunk-skipping design (bq_work)
+        bnd, by, tests, points = bq_bound(r, k, x, ctr, idx_p, 4 + 12)
         rows["ball_query_group"].append({
             "call": name, "shape": f"B{Bx} N{N} S{S} K{k} r{r}",
             "max_abs_err": max(int((idx - idx_p).abs().max()),
                                float((grouped - grouped_p).abs().max())),
-            "scanned_share": int(scanned) / (Bx * S * N),
-            "scanned": int(scanned), "bound_ms": bnd, "bound_by": by,
-            "args": (r, k, x, ctr)})
+            "box_tests": tests, "points_tested": points,
+            "tested_share": points / (Bx * S * N),
+            "bound_ms": bnd, "bound_by": by, "args": (r, k, x, ctr),
+            "idx": idx_p})
     print("[check] every kernel equal to its plain version at "
           f"{len(fps_calls)} fps and {len(bq_calls)} ball-query shapes "
           "(tolerance 0: indices and grouped xyz bitwise)")
 
     # -- 6. times
+    fps_module = importlib.import_module("omni_pq_torch.ops.fps")
     for row in rows["fps"]:
         x, npoint = row.pop("args")
         row["ms"] = time_ms(lambda: ops.fps(x, npoint), reps=10)
+        row["device_ms"] = device_ms(lambda: ops.fps(x, npoint),
+                                     KERNEL_NAMES["fps"])
+        check(row["device_ms"] is not None, f"fps {row['call']}: the "
+              "profiler recorded no fps kernel: device time not measured")
         row["plain_ms"] = time_ms(lambda: ops.fps_plain(x, npoint), reps=2)
+        row["cluster"], row["threads"], _ = fps_module.cluster_plan(
+            x.shape[1])
+        row["device_us_per_step"] = row["device_ms"] * 1e3 / (npoint - 1)
     rows["ball_query"] = []  # the idx-only entry point of the same kernel
     for row in rows["ball_query_group"]:
         r, k, x, ctr = row.pop("args")
+        idx_p = row.pop("idx")
         row["ms"] = time_ms(lambda: ops.ball_query_group(r, k, x, ctr),
                             reps=10)
+        row["device_ms"] = device_ms(
+            lambda: ops.ball_query_group(r, k, x, ctr),
+            KERNEL_NAMES["ball_query"])
         row["plain_ms"] = time_ms(
             lambda: ops.ball_query_group_plain(r, k, x, ctr), reps=2)
-        Bx, N, _ = x.shape
-        S = ctr.shape[1]
-        bnd, by = bound_ms(Bx * N * 12 + Bx * S * 12 + Bx * S * k * 4,
-                           row["scanned"] * BQ_OPS_PER_POINT)
+        bnd, by, _, _ = bq_bound(r, k, x, ctr, idx_p, 4)
         rows["ball_query"].append({
             "call": row["call"], "shape": row["shape"], "max_abs_err": 0,
             "ms": time_ms(lambda: ops.ball_query(r, k, x, ctr), reps=10),
+            "device_ms": device_ms(lambda: ops.ball_query(r, k, x, ctr),
+                                   KERNEL_NAMES["ball_query"]),
             "plain_ms": time_ms(lambda: ops.ball_query_ref(r, k, x, ctr),
                                 reps=2),
             "bound_ms": bnd, "bound_by": by})
     for kname, krows in rows.items():
         for row in krows:
+            check(row["device_ms"] is not None, f"{kname} {row['call']}: "
+                  "the profiler recorded none of its kernels: device time "
+                  "not measured")
+            extra = (f"  cluster P={row['cluster']} x {row['threads']} "
+                     f"threads, {row['device_us_per_step']:.3f} us/step"
+                     if kname == "fps" else "")
             print(f"[time] {kname:16s} {row['call']:16s} {row['shape']:28s} "
-                  f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms"
-                  f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  "
+                  f"kernel {row['ms']:.4f} ms (device {row['device_ms']})"
+                  f"  plain {row['plain_ms']:.3f} ms  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}){extra}  "
                   f"[{card}]")
     fwd_ms = wall_ms_per_call(lambda: eval_forward(model, pc), reps=5)
     with ops.plain_versions():
@@ -1081,8 +1180,8 @@ def main() -> int:
               if e.device_type == DeviceType.CUDA}
     op_ms = {e.key: e.self_device_time_total / 1e3 for e in events
              if e.device_type == DeviceType.CPU and e.self_device_time_total > 0}
-    op_ms.update({k: v for k, v in dev_ms.items() if "ball_query" in k
-                  or "fps_kernel" in k})
+    op_ms.update({k: v for k, v in dev_ms.items()
+                  if re.search(r"::(ball_query|chunk_box|fps)_kernel\b", k)})
     busy_ms = sum(dev_ms.values())
     table = events.table(sort_by="self_device_time_total", row_limit=25)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1147,6 +1246,17 @@ def main() -> int:
     feats_launches = report["semi"]["routes"]["unfused"]["launches"][
         "ball_query_group_feats"]
     report["kernel_rows"] = rows
+    # a time below its bound means a miscounted bound or a broken timer
+    for kname, krows in rows.items():
+        for row in krows:
+            for clock in ("ms", "device_ms"):
+                if clock not in row:  # rows with no profiler time
+                    continue
+                t = row[clock]
+                check(t is not None and t >= row["bound_ms"],
+                      f"{kname} {row['call']}: {clock} {t} below its bound "
+                      f"{row['bound_ms']}")
+    print("[check] no kernel time (events or device) below its bound")
 
     summary = []
     for kname, source, replaces in (
@@ -1160,6 +1270,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in krows),
             "ms": sum(r["ms"] for r in krows),
+            "device_ms": sum(r["device_ms"] for r in krows),
             "plain_ms": sum(r["plain_ms"] for r in krows),
             "bound_ms": bound,
             "bound_by": max(krows, key=lambda r: r["bound_ms"])["bound_by"],

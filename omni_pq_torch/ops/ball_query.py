@@ -21,6 +21,8 @@ cotangent scatter-adds into the features the same way (`_bqg_feats_bwd`).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import cuda
@@ -48,6 +50,15 @@ def ball_query_group_feats_plain(radius: float, nsample: int,
 FEATURE_DTYPES = (torch.float32, torch.bfloat16)
 
 
+@functools.lru_cache(maxsize=None)
+def scan_max_points() -> int:
+    """Rows of up to this many points are scanned whole; larger rows skip
+    32-point chunks by their bounding boxes, which the launch writes into a
+    scratch table first (read from the built library: csrc/point_logic.cuh,
+    kBqScanMaxPoints)."""
+    return cuda.library("ball_query")[2].ball_query_scan_max_points()
+
+
 def _launch(radius, nsample, xyz, new_xyz, emit_values: bool, features=None):
     cuda.check_cuda_tensor("ball query xyz", xyz, torch.float32, 3, last=3)
     cuda.check_cuda_tensor("ball query centres", new_xyz, torch.float32, 3,
@@ -59,6 +70,10 @@ def _launch(radius, nsample, xyz, new_xyz, emit_values: bool, features=None):
                          f"{xyz.device}, centres {tuple(new_xyz.shape)} on "
                          f"{new_xyz.device}")
     dev = xyz.device
+    # scratch: each 32-point chunk's bounding box (six arrays of bounds a
+    # row), written by the launch
+    boxes = (torch.empty(B, 6, -(-N // 32), dtype=torch.float32, device=dev)
+             if N > scan_max_points() else None)
     idx = torch.empty(B, S, nsample, dtype=torch.int32, device=dev)
     grouped = (torch.empty(B, S, nsample, 3, dtype=torch.float32, device=dev)
                if emit_values else None)
@@ -78,7 +93,8 @@ def _launch(radius, nsample, xyz, new_xyz, emit_values: bool, features=None):
     row_bytes = (features.shape[2] * features.element_size()
                  if feats is not None and feats.numel() else 0)
     cuda.launch("ball_query", dev, xyz.data_ptr(), new_xyz.data_ptr(),
-                idx.data_ptr(), grouped.data_ptr() if emit_values else None,
+                None if boxes is None else boxes.data_ptr(), idx.data_ptr(),
+                grouped.data_ptr() if emit_values else None,
                 features.data_ptr() if row_bytes else None,
                 feats.data_ptr() if row_bytes else None, row_bytes,
                 B, N, S, nsample, radius_sq(radius))

@@ -7,14 +7,21 @@ Pallas kernel `omni_pq_tpu/ops/fps.py::_fps_kernel`.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from . import cuda
 from .reference import fps_ref as fps_plain
 
-# the min-distance row lives in shared memory: 227 KB a block, less 1 KB
-# kept for the kernel's static shared memory (272 bytes by ptxas)
-MAX_POINTS = (cuda.MAX_SHARED_BYTES - 1024) // 4
+
+@functools.lru_cache(maxsize=None)
+def max_points() -> int:
+    """The kernel's capacity, read from the built library: a row's points
+    live in registers, 16 a thread, over a cluster of at most 16 CTAs of 512
+    threads (csrc/point_logic.cuh, kFpsMaxPoints)."""
+    return cuda.library("fps")[2].fps_max_points()
 
 
 def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -26,9 +33,9 @@ def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         return fps_plain(xyz, npoint)
     cuda.check_cuda_tensor("fps xyz", xyz, torch.float32, 3, last=3)
     B, N, _ = xyz.shape
-    if not 0 < N <= MAX_POINTS or npoint < 1:
-        raise ValueError(f"fps kernel takes 0 < N <= {MAX_POINTS} points and "
-                         f"npoint >= 1, got N={N}, npoint={npoint}")
+    if not 0 < N <= max_points() or npoint < 1:
+        raise ValueError(f"fps kernel takes 0 < N <= {max_points()} points "
+                         f"and npoint >= 1, got N={N}, npoint={npoint}")
     out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
     if B:
         cuda.launch("fps", xyz.device, xyz.data_ptr(), out.data_ptr(), B, N,
@@ -38,3 +45,15 @@ def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 fps.launches = 0  # kernel launches since the count was last set to 0
+
+
+def cluster_plan(N: int) -> tuple:
+    """(cluster size P, threads a CTA, points a thread) that the kernel
+    takes for rows of N points (csrc/point_logic.cuh, fps_plan): one CTA up
+    to 2048 points, else a cluster of 16 CTAs a batch row."""
+    fn = cuda.library("fps")[2].fps_plan_for
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    plan = (ctypes.c_int * 3)()
+    fn(N, plan)
+    return tuple(plan)

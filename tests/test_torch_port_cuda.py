@@ -20,6 +20,8 @@ the CPU's to 1e-6 of the gradient's norm. One full-width semi-supervised step ru
 with finite stats and the launch counts of its two forwards.
 """
 import dataclasses
+import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -28,8 +30,10 @@ import torch
 from omni_pq_torch import ops
 from omni_pq_torch.config import SMOKE_MODEL, ModelConfig
 from omni_pq_torch.data import make_batch
+from omni_pq_torch.data.spatial import spatial_sort
 from omni_pq_torch.infer import build_model, eval_forward
-from omni_pq_torch.ops.fps import MAX_POINTS
+
+fps_module = importlib.import_module("omni_pq_torch.ops.fps")
 from omni_pq_torch.ops.fused_mlp import kernel_mlp_pool, plain_mlp_pool
 
 pytestmark = pytest.mark.cuda
@@ -48,24 +52,60 @@ def _cuda(x, dev):
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
 
 
+@functools.lru_cache(maxsize=None)
+def _scenes(B):
+    """B synthetic 40 000-point scenes (Morton-ordered), seed 0."""
+    return make_batch(np.random.default_rng(0), B)["point_clouds"]
+
+
+def _twins(r, B, half):  # point n and n + half coincide: ties across slices
+    a = r.uniform(0.5, 5, (B, half, 3))
+    return np.concatenate([a, a], 1)
+
+
+# (points, npoint, the cluster size P the kernel takes)
 FPS_CASES = {
-    "near_ties": lambda r: (r.uniform(0.5, 5, (2, 5000, 3)), 512),
+    "near_ties": lambda r: (r.uniform(0.5, 5, (2, 5000, 3)), 512, 16),
     "zero_padding": lambda r: (np.concatenate(
-        [r.normal(size=(2, 450, 3)) + 2.0, np.zeros((2, 150, 3))], 1), 128),
-    "n_below_npoint": lambda r: (r.normal(size=(3, 40, 3)) + 2.0, 64),
-    "partial_warp": lambda r: (r.normal(size=(2, 33, 3)) + 2.0, 8),
-    "sa1_scale": lambda r: (make_batch(r, 2)["point_clouds"], 2048),
+        [r.normal(size=(2, 450, 3)) + 2.0, np.zeros((2, 150, 3))], 1), 128,
+        1),
+    "n_below_npoint": lambda r: (r.normal(size=(3, 40, 3)) + 2.0, 64, 1),
+    "partial_warp": lambda r: (r.normal(size=(2, 33, 3)) + 2.0, 8, 1),
+    "sa1_scale": lambda r: (_scenes(2), 2048, 16),
+    "sa1_b16": lambda r: (_scenes(16), 2048, 16),
+    "train_b3": lambda r: (_scenes(3), 2048, 16),
+    "train_b6": lambda r: (_scenes(6), 2048, 16),
+    # N not a multiple of P x threads: a partial last slice
+    "ragged_slices": lambda r: (r.uniform(0.5, 5, (3, 39997, 3)), 256, 16),
+    "ragged_b16": lambda r: (r.uniform(0.5, 5, (16, 40013, 3)), 128, 16),
+    # every point the same: every step ties everywhere (the parity banks)
+    "all_ties": lambda r: (np.full((3, 40000, 3), [1.5, -2.0, 0.7]), 64, 16),
+    "all_ties_small": lambda r: (np.full((2, 1500, 3), [1.5, -2.0, 0.7]), 64,
+                                 1),
+    "cross_slice_ties": lambda r: (_twins(r, 3, 20000), 256, 16),
+    # a cluster that picks only index 0 (no step), and more picks than
+    # points with zero padding
+    "cluster_npoint_one": lambda r: (r.uniform(0.5, 5, (2, 5000, 3)), 1, 16),
+    "cluster_n_below_npoint": lambda r: (np.concatenate(
+        [r.normal(size=(2, 2000, 3)) + 2.0, np.zeros((2, 100, 3))], 1), 2500,
+        16),
+    "cross_slice_ties_b16": lambda r: (_twins(r, 16, 20000), 256, 16),
 }
 
 
 @pytest.mark.parametrize("case", sorted(FPS_CASES))
 def test_fps_kernel_equals_plain(dev, case):
-    xyz, npoint = FPS_CASES[case](np.random.default_rng(0))
+    xyz, npoint, P = FPS_CASES[case](np.random.default_rng(0))
     x = _cuda(xyz, dev)
+    assert fps_module.cluster_plan(x.shape[1])[0] == P
     got = ops.fps(x, npoint)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and got.shape == (x.shape[0], npoint)
     assert torch.equal(got, ops.fps_plain(x, npoint))
+    if case.startswith("all_ties"):
+        assert (got == 0).all()
+    if case.startswith("cross_slice_ties"):
+        assert (got < 20000).all()
 
 
 def _shells(r, B=2, N=2048, S=128, radius=0.4):
@@ -80,6 +120,32 @@ def _bq_case(name, r):
     if name == "shells_k64":  # points within ~1 ULP of the radius
         xyz, ctr = _shells(r)
         return xyz, ctr, 0.4, 64
+    if name == "shells_k64_morton":  # the same, above 2048 points: boxes
+        xyz, ctr = _shells(r, N=4096)
+        return np.stack([x[spatial_sort(x)] for x in xyz]), ctr, 0.4, 64
+    if name == "sa1_b16":
+        pc = _scenes(16)
+        return pc, pc[:, ::19][:, :2048], 0.2, 64
+    if name == "fps_ordered":  # sa2's input: an unsorted cloud
+        pc = _scenes(2)[:, :8000]
+        sub = np.stack([p[ops.fps_ref(torch.from_numpy(p[None]), 2048)[0]]
+                        for p in pc])
+        return sub, sub[:, :1024], 0.4, 32
+    if name in ("table_at_shared_cap", "table_in_global"):
+        # a box table just within and just beyond a block's shared memory
+        # (227 KB: 9685 chunks, so 309 920 points), in a Morton-ordered
+        # 10 x 10 x 3 m room (~100 points a ball of radius 0.2)
+        N = 309920 if name == "table_at_shared_cap" else 309921
+        xyz = r.random((1, N, 3), dtype=np.float32) * np.float32([10, 10, 3])
+        xyz = xyz[:, spatial_sort(xyz[0])]
+        return xyz, xyz[:, r.permutation(N)[:256]], 0.2, 32
+    if name == "rows_above_grid_y":  # more batch rows than a grid's y extent
+        xyz = r.random((65537, 2085, 3), dtype=np.float32)
+        return xyz, xyz[:, :2], 0.2, 8
+    if name == "partial_last_chunk":
+        xyz = r.uniform(size=(2, 4001, 3)) * 3
+        xyz = np.stack([x[spatial_sort(x)] for x in xyz])
+        return xyz, xyz[:, ::7][:, :250].copy(), 0.3, 32
     xyz = r.uniform(size=(2, 2000, 3)) * 3
     ctr = xyz[:, ::8][:, :250].copy()
     if name == "no_hit_centres":
@@ -94,7 +160,10 @@ def _bq_case(name, r):
 
 
 @pytest.mark.parametrize("case", ["plain", "no_hit_centres", "overflowing",
-                                  "shells_k64", "sa1_scale"])
+                                  "shells_k64", "shells_k64_morton",
+                                  "fps_ordered", "partial_last_chunk",
+                                  "sa1_scale", "sa1_b16", "table_at_shared_cap",
+                                  "table_in_global", "rows_above_grid_y"])
 def test_ball_query_kernel_equals_plain(dev, case):
     xyz, ctr, radius, k = _bq_case(case, np.random.default_rng(1))
     x, c = _cuda(xyz, dev), _cuda(ctr, dev)
@@ -119,8 +188,16 @@ def test_wrappers_count_launches_and_check_inputs(dev):
         ops.fps(x.double(), 16)
     with pytest.raises(ValueError, match="contiguous"):
         ops.fps(x.transpose(0, 1), 16)
+    cap = fps_module.max_points()  # a 16-CTA cluster's registers
+    assert cap == 16 * 512 * 16
+    assert fps_module.cluster_plan(cap)[0] == 16
+    assert fps_module.cluster_plan(cap + 1)[0] == 0
+    big = torch.ones(1, cap + 1, 3, device=dev)
     with pytest.raises(ValueError, match="N <="):
-        ops.fps(torch.ones(1, MAX_POINTS + 1, 3, device=dev), 16)
+        ops.fps(big, 16)
+    line = big[:, :-1] * 1e-3 * torch.arange(  # the largest row it takes
+        cap, device=dev)[None, :, None]
+    assert torch.equal(ops.fps(line, 32), ops.fps_plain(line, 32))
     with pytest.raises(ValueError, match="contiguous"):
         ops.ball_query_group(0.5, 8, x, x[:, ::2])
 
@@ -273,13 +350,15 @@ def test_fused_forward_and_train_step_on_card(dev):
 
 
 # (N, S, K, C, dtype, element offset of the features' storage): every
-# vector width of the row copy (16, 8, 4, 2 bytes), no-hit centres, K > 32
+# vector width of the row copy (16, 8, 4, 2 bytes), no-hit centres, K > 32,
+# and a row long enough for the chunk-box query
 FEATS_CASES = {
     "c128_f32": (2000, 250, 16, 128, torch.float32, 0),
     "c130_f32_k40": (2000, 250, 40, 130, torch.float32, 0),
     "c7_f32_offset": (800, 64, 16, 7, torch.float32, 1),
     "c64_bf16": (2000, 250, 8, 64, torch.bfloat16, 0),
     "c5_bf16_offset": (600, 40, 8, 5, torch.bfloat16, 1),
+    "c64_f32_chunk_boxes": (4000, 250, 16, 64, torch.float32, 0),  # N > 2048
 }
 
 
