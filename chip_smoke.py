@@ -44,16 +44,19 @@ when every phase passed:
      and grad_norm of the two routes within tolerance, every fps and
      ball_query_group call of the first step bitwise equal to its plain
      version on the call's own inputs, the ball-query-group backward's
-     gradient into vote_xyz non-zero, 4 train-mode fused calls a fused step;
-     warmed ms/step, peak memory and a torch.profiler top-ops line of one
-     step for each route.
-  9. the fused kernel against its plain version on phases 7 and 8's own
+     gradient into vote_xyz non-zero, 4 train-mode fused calls a fused step
+     (each L GEMM passes, L stats launches and one pool launch, all seen by
+     the profile); warmed ms/step, peak memory and a torch.profiler top-ops
+     line of one step for each route.
+  9. the fused kernels against their plain version on phases 7 and 8's own
      inputs at every fused shape: eval mode at B=16, train mode at B=3
-     (pooled output and batch statistics).
- 10. times of the fused kernel and its plain version (the cuBLAS GEMM +
-     elementwise chain that fused_sa=False runs) per shape and mode, with
-     the bound (one chain's operations; a train-mode call runs L+1 passes),
-     and the idx-only ball_query at phase 5's five shapes.
+     (pooled output and batch statistics); the train mode's chains of
+     products and scratch from its pass plan.
+ 10. times of the fused kernels and their plain version (the cuBLAS GEMM +
+     elementwise chain that fused_sa=False runs) per shape and mode: CUDA
+     events and the profiler's device time of the call's launches, with
+     the bound (one chain's operations), and the idx-only ball_query at
+     phase 5's five shapes.
  11. ball_query_group_feats (on no model path) at the sa2-sa4 and vote
      aggregation shapes, B=16, on phase 3's points, centres and input
      features: bitwise equal to its plain version (float32 everywhere,
@@ -67,7 +70,8 @@ when every phase passed:
      and ball_query_group call of the first step (student and teacher)
      bitwise equal to its plain version on its own inputs, the teacher on
      the EMA rule with its BN stats moved, the fused step's 8 train-mode
-     calls against their plain version; one step each with the fitted
+     calls (24 passes, 24 stats and 8 pool launches) against their plain
+     version; one step each with the fitted
      mixture and the ARKit loss; warmed ms/step in turns, peak memory, a
      profile of one step per route; one step with the last quad head rigged
      so that the gamma criterion engages (gamma_engaged_frac > 0).
@@ -103,7 +107,9 @@ BQ_BOX_OPS = 18             # a box test: 6 sub, 6 max, 3 mul, 2 add, 1 compare
 # the kernels of each timed entry point, as torch.profiler names them (a
 # ball query call is the chunk-box pre-pass and the query)
 KERNEL_NAMES = {"fps": r"::fps_kernel\b",
-                "ball_query": r"::(ball_query|chunk_box)_kernel\b"}
+                "ball_query": r"::(ball_query|chunk_box)_kernel\b",
+                "fused_mlp": r"::(fused_mlp|mlp_pass|mlp_stats|mlp_pool)"
+                             r"_kernel\b"}
 # fused SA-MLP vs its plain version: products summed in another order
 FUSED_TOL = dict(rtol=1e-4, atol=1e-4)       # pooled output, batch means
 FUSED_VAR_TOL = dict(rtol=1e-4, atol=1e-5)   # batch variances
@@ -186,9 +192,10 @@ def bound_ms(nbytes: float, nops: float):
 def device_ms(fn, pattern: str, reps: int = 10, tries: int = 3):
     """The matching kernels' own time a call: for each kernel whose
     torch.profiler name matches `pattern`, its mean over the launches traced
-    in `reps` warmed calls, summed over the kernels. The profiler may drop
-    some launches' records, now and then a whole window's (seen on the H100):
-    a window with none is traced again, up to `tries` times. None if every
+    in `reps` warmed calls times its launches a call (the traced count over
+    `reps`, rounded), summed over the kernels. The profiler may drop some
+    launches' records, now and then a whole window's (seen on the H100): a
+    window with none is traced again, up to `tries` times. None if every
     window came back empty."""
     import torch
     from torch.autograd import DeviceType
@@ -204,7 +211,8 @@ def device_ms(fn, pattern: str, reps: int = 10, tries: int = 3):
                 if e.device_type == DeviceType.CUDA and e.count
                 and re.search(pattern, e.key)]
         if kern:
-            return sum(e.self_device_time_total / e.count for e in kern) / 1e3
+            return sum(e.self_device_time_total / e.count
+                       * max(1, round(e.count / reps)) for e in kern) / 1e3
     return None
 
 
@@ -269,6 +277,14 @@ def max_violation(got, want, rtol, atol):
 def chain_flops(rows: int, chans) -> int:
     """Operations of one Dense chain over `rows` rows (2 a multiply-add)."""
     return 2 * rows * sum(a * b for a, b in zip(chans[:-1], chans[1:]))
+
+
+def fused_train_launches(layers) -> dict:
+    """The fused kernels' launches of train-mode calls of `layers` layers
+    each, by profiler name: each call L GEMM passes, L stats launches and
+    one pool launch; the eval mode's chained kernel none."""
+    return {"fused_mlp_kernel": 0, "mlp_pass_kernel": sum(layers),
+            "mlp_stats_kernel": sum(layers), "mlp_pool_kernel": len(layers)}
 
 
 def fused_launch_counts(counted) -> dict:
@@ -454,8 +470,9 @@ def profile_step(run, expect, step_ms):
                      and e.self_device_time_total > 0), reverse=True)
     kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in events if e.device_type == DeviceType.CUDA
-                   and re.search(r"::(fused_mlp|ball_query|fps)_kernel\b",
-                                 e.key)), reverse=True)
+                   and re.search(r"::(fused_mlp|mlp_pass|mlp_stats|mlp_pool"
+                                 r"|ball_query|fps)_kernel\b", e.key)),
+                  reverse=True)
     seen = {name: sum(c for _, c, k in kern
                       if re.search(rf"::{name}\b", k)) for name in expect}
     complete = seen == expect
@@ -611,12 +628,12 @@ def train_phase(cfg, dev, counted, card):
             reps=5))
     lines = [card]
     top = {}
+    fused_layers = [len(rec["weights"]) for rec in records]
     for route, r in routes.items():
         expect = {"fps_kernel": r["launches"]["fps"],
                   "ball_query_kernel": r["launches"]["ball_query_group"],
-                  "fused_mlp_kernel": sum(len(rec["weights"]) + 1
-                                          for rec in records)
-                  if route == "fused" else 0}
+                  **fused_train_launches(fused_layers if route == "fused"
+                                         else [])}
         top[route], table = profile_step(
             lambda: r["step"](r["state"], labeled, generator=r["gen"]),
             expect, float(np.mean(times[route])))
@@ -644,7 +661,8 @@ def fused_kernel_rows(records, mode, names=None):
     (one record per fused SA layer call, named sa1..sa4 in call order unless
     `names` are given)."""
     import torch
-    from omni_pq_torch.ops.fused_mlp import kernel_mlp_pool, plain_mlp_pool
+    from omni_pq_torch.ops.fused_mlp import (kernel_mlp_pool, plain_mlp_pool,
+                                            plan_costs)
     names = names or [f"sa{i + 1}" for i in range(len(records))]
     rows = []
     for name, rec in zip(names, records):
@@ -672,10 +690,13 @@ def fused_kernel_rows(records, mode, names=None):
         L = len(rec["weights"])
         rows_n = Bx * S * K
         one = chain_flops(rows_n, chans)
-        # the kernel's own work: a train call runs pass p over layers 0..p
-        # for p < L, then the whole chain
-        ran = one + (sum(chain_flops(rows_n, chans[:p + 2])
-                         for p in range(L)) if rec["train"] else 0)
+        # the kernels' own work: the eval kernel runs the chain once; a
+        # train call runs its pass plan (one chain, plus the recompute of
+        # a_1 where C0 is tiny), writing and reading back the stored
+        # pre-activations (scratch_bytes: the most alive at once)
+        ran, scratch = plan_costs(chans, rows_n) if rec["train"] else (one, 0)
+        # the bound counts the function's own bytes: its inputs read once,
+        # its outputs (pooled; train: batch means and variances) written once
         nbytes = 4 * (rec["grouped"].numel()
                       + sum(w.numel() for w in rec["weights"])
                       + Bx * S * chans[-1]
@@ -685,8 +706,8 @@ def fused_kernel_rows(records, mode, names=None):
                          shape=f"B{Bx} S{S} K{K} C{'/'.join(map(str, chans))}",
                          max_abs_err=max(errs.values()), errs=errs,
                          chain_flops=one, kernel_flops=ran,
-                         chains_run=ran / one, bound_ms=bnd, bound_by=by,
-                         args=args))
+                         chains_run=ran / one, scratch_bytes=scratch,
+                         bound_ms=bnd, bound_by=by, args=args))
     return rows
 
 
@@ -886,6 +907,7 @@ def semi_phase(cfg, dev, card, sup_stat_names):
     frows = fused_kernel_rows(records, "train", names)
     for row in frows:
         row.pop("args")
+    fused_layers = [len(rec["weights"]) for rec in records]
     del records
     print(f"[semi] the fused step's 8 train-mode calls (student and "
           f"teacher, B={2 * TRAIN_B}) equal to their plain version within "
@@ -916,7 +938,8 @@ def semi_phase(cfg, dev, card, sup_stat_names):
     top = {}
     for route, r in routes.items():
         expect = {"fps_kernel": 12, "ball_query_kernel": 10,
-                  "fused_mlp_kernel": 8 * 4 if route == "fused" else 0}
+                  **fused_train_launches(fused_layers if route == "fused"
+                                         else [])}
         top[route], table = profile_step(r["run"], expect,
                                          float(np.mean(times[route])))
         lines.append(f"--- semi-supervised {route} step\n" + table)
@@ -1228,12 +1251,18 @@ def main() -> int:
         args = row.pop("args")
         with torch.no_grad():
             row["ms"] = time_ms(lambda: kernel_mlp_pool(*args), reps=5)
+            row["device_ms"] = device_ms(lambda: kernel_mlp_pool(*args),
+                                         KERNEL_NAMES["fused_mlp"])
             row["plain_ms"] = time_ms(lambda: plain_mlp_pool(*args), reps=3)
+        check(row["device_ms"] is not None, f"fused_mlp_pool {row['call']} "
+              f"{row['mode']}: the profiler recorded none of its kernels")
         print(f"[time] fused_mlp_pool   {row['call']} {row['mode']:5s} "
-              f"{row['shape']:30s} kernel {row['ms']:.3f} ms  plain "
-              f"(cuBLAS chain) {row['plain_ms']:.3f} ms  bound "
-              f"{row['bound_ms']:.3f} ms ({row['bound_by']}, one chain; "
-              f"the kernel runs {row['chains_run']:.2f} chains)  [{card}]")
+              f"{row['shape']:30s} kernel {row['ms']:.3f} ms (device "
+              f"{row['device_ms']:.4f})  plain (cuBLAS chain) "
+              f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}, one chain; the kernels run "
+              f"{row['chains_run']:.4f} chains, scratch "
+              f"{row['scratch_bytes']} bytes)  [{card}]")
     rows["fused_mlp_pool"] = frows
 
     # -- 11. ball_query_group_feats at the SA and vote-aggregation shapes
@@ -1275,21 +1304,28 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": max(krows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": None, "matched": True})
-    # the fused kernel: its main path is phase 7's fused eval forward (one
-    # eval-mode call a fused SA layer); times and bounds are that forward's
-    # 4 calls, max_abs_err covers the train-mode calls of phase 8 too
-    erows = [r for r in frows if r["mode"] == "eval"]
-    summary.append({
-        "name": "fused_mlp_pool", "route": "cuda",
-        "source": "omni_pq_torch/csrc/fused_mlp.cu",
-        "replaces": "omni_pq_tpu/ops/fused_mlp.py:116",
-        "launches": fused_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in frows),
-        "ms": sum(r["ms"] for r in erows),
-        "plain_ms": sum(r["plain_ms"] for r in erows),
-        "bound_ms": sum(r["bound_ms"] for r in erows),
-        "bound_by": max(erows, key=lambda r: r["bound_ms"])["bound_by"],
-        "library_ms": None, "matched": True})
+    # the fused kernels, one entry a mode: eval's main path is phase 7's
+    # fused eval forward (one chained-kernel call a fused SA layer), train's
+    # phase 8's fused supervised step (one pass-plan call a fused SA layer:
+    # L passes, L stats launches, one pool launch); times and bounds are
+    # those calls' (phase 10)
+    for mode, launched in (
+            ("eval", fused_launches),
+            ("train", report["train"]["routes"]["fused"]["launches"][
+                "fused_mlp_pool"])):
+        mrows = [r for r in frows if r["mode"] == mode]
+        summary.append({
+            "name": "fused_mlp_pool" + ("" if mode == "eval" else "_train"),
+            "route": "cuda", "source": "omni_pq_torch/csrc/fused_mlp.cu",
+            "replaces": "omni_pq_tpu/ops/fused_mlp.py:116",
+            "launches": launched,
+            "max_abs_err": max(r["max_abs_err"] for r in mrows),
+            "ms": sum(r["ms"] for r in mrows),
+            "device_ms": sum(r["device_ms"] for r in mrows),
+            "plain_ms": sum(r["plain_ms"] for r in mrows),
+            "bound_ms": sum(r["bound_ms"] for r in mrows),
+            "bound_by": max(mrows, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": None, "matched": True})
     # on no model path: its launches are the semi-supervised step's (0);
     # times and bounds are phase 11's four shapes
     frows11 = rows["ball_query_group_feats"]

@@ -45,9 +45,26 @@ _SIGNATURES = {
     "fused_mlp": ("fused_mlp_launch",
                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]),
+                   ctypes.c_int, ctypes.c_void_p]),
+}
+# the other launchers of a library, {C function: argtypes}; each returns
+# the launch's cudaError_t too
+_MORE_SIGNATURES = {
+    "fused_mlp": {
+        "mlp_pass_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_void_p],
+        "mlp_stats_launch": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_longlong, ctypes.c_void_p,
+                             ctypes.c_void_p, ctypes.c_void_p],
+        "mlp_pool_launch": [ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_void_p],
+    },
 }
 
 # dynamic shared memory one block may use on an H100 (227 KB)
@@ -119,6 +136,9 @@ def library(name: str):
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        for more, more_argtypes in _MORE_SIGNATURES.get(name, {}).items():
+            getattr(lib, more).argtypes = more_argtypes
+            getattr(lib, more).restype = ctypes.c_int
         err = lib.error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -126,10 +146,14 @@ def library(name: str):
     return _loaded[name]
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call kernel library `name`'s launcher on `device`'s current stream;
-    raise if the launch was refused."""
-    fn, err, _ = library(name)
+def launch(name: str, device: torch.device, *args,
+           entry: str | None = None) -> None:
+    """Call kernel library `name`'s launcher (or its launcher `entry`, one
+    of `_MORE_SIGNATURES[name]`) on `device`'s current stream; raise if the
+    launch was refused."""
+    fn, err, lib = library(name)
+    if entry is not None:
+        fn = getattr(lib, entry)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:

@@ -19,11 +19,16 @@ order (k ascending, one fma at a time), so it agrees with the plain version
 (cuBLAS on the card) to float32 roundoff, not bitwise; the BN arithmetic
 after the product is the same rounding step by step.
 
-In train mode the kernel runs L+1 passes, as the Pallas grid does: pass i
-recomputes the chain up to layer i (earlier layers normalised with their
-finished batch stats) and sums layer i's per-channel sum and sum of squares
-over all rows; the last pass writes the pooled output. Per-block partial sums
-are reduced in a fixed order, so two runs give bitwise the same stats.
+In train mode the kernel runs the chain once, as L GEMM passes (the pass
+plan, `pass_plan`): pass j reads the grouped rows (j = 0) or the stored
+pre-activation a_j, normalised with layer j's finished batch stats as it is
+loaded, and writes a_{j+1} and its column sums; a stats launch after each
+pass reduces the sums in a fixed order (two runs give bitwise the same
+stats). Where C0 is tiny (sa1: xyz only) a_1 is not stored: pass 1
+recomputes it from the grouped rows. The last pass writes the max and the
+min of a_L over each centre's rows, and a pool launch takes the BN + ReLU of
+the max where the BN multiplier is >= 0 and of the min where it is < 0:
+bitwise the max over the rows of the BN + ReLU, since that map is monotone.
 
 The backward recomputes the plain chain under autograd and backpropagates
 through it (the JAX package's `_fused_bwd`); running statistics get no
@@ -31,7 +36,7 @@ gradient.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import ctypes
 
@@ -41,9 +46,10 @@ from . import cuda
 
 # the CUDA kernel's limits: at most this many layers, and 256 threads a block
 MAX_LAYERS = 8
-# blocks per SM the wrapper sizes the partial-sum buffer for (256 threads a
-# block: at most 8 resident on an SM)
-_MAX_BLOCKS_PER_SM = 8
+# the pass plan recomputes a_1 from the grouped rows where C0 is at most this
+# (C0 FMAs an element instead of a stored C1-wide row; the kernel holds up
+# to 4 input channels a row for it)
+RECOMPUTE_MAX_C0 = 4
 _LANE = 128
 
 
@@ -94,6 +100,44 @@ def fused_mlp_pool_plain(grouped, weights, scales, biases, ra_means=(),
                           train, eps)
 
 
+class Pass(NamedTuple):
+    """One GEMM pass of the train mode: a_{layer+1} = h_layer @ W_layer."""
+    layer: int
+    source: str      # "x": the grouped rows; "a": the stored a_layer, BN +
+                     # ReLU on load; "x@W0": a_1 recomputed from the rows
+    store: bool      # writes a_{layer+1} to a scratch tensor
+    extremes: bool   # the last pass: max and min of a_L over each centre
+
+
+def pass_plan(chans: Sequence[int]) -> list[Pass]:
+    """The train mode's passes for widths [C0, C1, ..., CL]: one a layer,
+    each launch followed by a stats launch, then the pool launch."""
+    L = len(chans) - 1
+    recompute = L >= 2 and chans[0] <= RECOMPUTE_MAX_C0
+    plan = []
+    for j in range(L):
+        source = "x" if j == 0 else ("x@W0" if j == 1 and recompute else "a")
+        plan.append(Pass(j, source, store=j < L - 1 and not (
+            j == 0 and recompute), extremes=j == L - 1))
+    return plan
+
+
+def plan_costs(chans: Sequence[int], rows: int) -> tuple[int, int]:
+    """(operations, scratch bytes) of the pass plan over `rows` rows: 2 a
+    multiply-add of every pass, the recompute included, and the most bytes
+    of stored pre-activations alive at once (a pass's input and output)."""
+    ops_n, peak = 0, 0
+    for p in pass_plan(chans):
+        j = p.layer
+        ops_n += 2 * rows * chans[j] * chans[j + 1]
+        if p.source == "x@W0":
+            ops_n += 2 * rows * chans[0] * chans[1]
+        alive = ((chans[j] if p.source == "a" else 0)
+                 + (chans[j + 1] if p.store else 0))
+        peak = max(peak, 4 * rows * alive)
+    return ops_n, peak
+
+
 def _check(grouped, weights, scales, biases, ra_means, ra_vars, train):
     cuda.check_cuda_tensor("fused_mlp grouped", grouped, torch.float32, 4)
     L = len(weights)
@@ -119,87 +163,114 @@ def _check(grouped, weights, scales, biases, ra_means, ra_vars, train):
             raise ValueError(f"fused_mlp: weight {i} is not 16-byte aligned")
     if K % 8:
         raise ValueError(f"fused_mlp kernel takes K % 8 == 0, got K={K}")
-    _, _, lib = cuda.library("fused_mlp")
-    smem_bytes = lib.fused_mlp_smem_bytes
-    smem_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-    smem_bytes.restype = ctypes.c_longlong
-    c_chans = (ctypes.c_int * len(chans))(*chans)
-    need = smem_bytes(ctypes.cast(c_chans, ctypes.c_void_p), L, K)
-    if need > cuda.MAX_SHARED_BYTES:
-        raise ValueError(f"fused_mlp: K={K} and widths {chans} need {need} "
-                         f"bytes of shared memory a block, more than "
-                         f"{cuda.MAX_SHARED_BYTES}")
+    if grouped.shape[0] * grouped.shape[1] == 0:
+        raise ValueError("fused_mlp: empty input")
+    if not train:  # the eval kernel holds a tile's chain in shared memory
+        _, _, lib = cuda.library("fused_mlp")
+        smem_bytes = lib.fused_mlp_smem_bytes
+        smem_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        smem_bytes.restype = ctypes.c_longlong
+        c_chans = (ctypes.c_int * len(chans))(*chans)
+        need = smem_bytes(ctypes.cast(c_chans, ctypes.c_void_p), L, K)
+        if need > cuda.MAX_SHARED_BYTES:
+            raise ValueError(f"fused_mlp: K={K} and widths {chans} need "
+                             f"{need} bytes of shared memory a block, more "
+                             f"than {cuda.MAX_SHARED_BYTES}")
     return chans
 
 
-def _rows_per_tile(K: int) -> int:
-    # fused_mlp.cu's tile: the smallest whole number of centres >= 32 rows
-    return -(-32 // K) * K
+def pass_tile(K: int) -> tuple[int, int]:
+    """(rows a pass tile, rows a max/min segment) of the train mode's
+    kernel for K neighbours, read from the built library: a tile holds
+    whole segments, a segment the K rows of a centre (K <= 128) or an
+    equal part of them."""
+    _, _, lib = cuda.library("fused_mlp")
+    fn = lib.mlp_pass_tile
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    if fn(K, ctypes.cast(out, ctypes.c_void_p)) != 0:
+        raise ValueError(f"fused_mlp: no pass tile for K={K}")
+    return out[0], out[1]
 
 
-def _launch(grouped, weights, biases, mus, muls, run_layers, stats_layer,
-            pooled=None):
-    """One pass of the kernel. Returns (mean, var) of layer `stats_layer`
-    when it is >= 0."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _eval_launch(grouped, weights, biases, mus, muls, pooled):
+    B, S, K, C0 = grouped.shape
+    chans = [C0] + [w.shape[1] for w in weights]
+    ptrs = []
+    for w, mu, mul, b in zip(weights, mus, muls, biases):
+        ptrs += [w.data_ptr(), mu.data_ptr(), mul.data_ptr(), b.data_ptr()]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_chans = (ctypes.c_int * len(chans))(*chans)
+    cuda.launch("fused_mlp", grouped.device, grouped.data_ptr(),
+                pooled.data_ptr(), ctypes.cast(c_ptrs, ctypes.c_void_p),
+                ctypes.cast(c_chans, ctypes.c_void_p), len(weights),
+                B * S * K, K)
+
+
+def _train_launches(grouped, weights, scales, biases, eps, pooled):
+    """The pass plan on the card: L passes, L stats launches and the pool
+    launch. Scratch (stored pre-activations, column sums, extremes) comes
+    from torch.empty and is freed as soon as no later launch reads it.
+    Returns the batch means and variances."""
     dev = grouped.device
     B, S, K, C0 = grouped.shape
     chans = [C0] + [w.shape[1] for w in weights]
-    L = len(weights)
-    ptrs = []
-    for i in range(L):
-        have = i < len(mus) and mus[i] is not None
-        ptrs += [weights[i].data_ptr(), mus[i].data_ptr() if have else 0,
-                 muls[i].data_ptr() if have else 0, biases[i].data_ptr()]
-    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    c_chans = (ctypes.c_int * len(chans))(*chans)
     rows = B * S * K
-    ntiles = -(-rows // _rows_per_tile(K))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    max_blocks = max(1, min(ntiles, sms * _MAX_BLOCKS_PER_SM))
-    mean = var = psum = None
-    if stats_layer >= 0:
-        c = chans[stats_layer + 1]
-        psum = torch.empty(max_blocks, 2, c, dtype=torch.float32, device=dev)
-        mean = torch.empty(c, dtype=torch.float32, device=dev)
-        var = torch.empty(c, dtype=torch.float32, device=dev)
-    cuda.launch("fused_mlp", dev, grouped.data_ptr(),
-                pooled.data_ptr() if pooled is not None else None,
-                ctypes.cast(c_ptrs, ctypes.c_void_p),
-                ctypes.cast(c_chans, ctypes.c_void_p), L, rows, K,
-                run_layers, stats_layer, max_blocks,
-                psum.data_ptr() if psum is not None else None,
-                mean.data_ptr() if mean is not None else None,
-                var.data_ptr() if var is not None else None)
-    return mean, var
+    tile_rows, seg = pass_tile(K)
+    tiles = -(-rows // tile_rows)
+    empty = lambda *shape: torch.empty(  # noqa: E731
+        *shape, dtype=torch.float32, device=dev)
+    means, variances, muls = [], [], []
+    a = ext = None
+    for p in pass_plan(chans):
+        j, cout = p.layer, chans[p.layer + 1]
+        out = empty(rows, cout) if p.store else None
+        ext = (empty(rows // seg, cout), empty(rows // seg, cout)) \
+            if p.extremes else (None, None)
+        psum = empty(tiles, 2, cout)
+        bn = (means[j - 1], muls[j - 1], biases[j - 1]) if j else (None,) * 3
+        cuda.launch("fused_mlp", dev, _ptr(a if p.source == "a" else grouped),
+                    _ptr(weights[0] if p.source == "x@W0" else None),
+                    C0 if p.source == "x@W0" else 0, *map(_ptr, bn),
+                    weights[j].data_ptr(), chans[j], cout, rows, K, _ptr(out),
+                    _ptr(ext[0]), _ptr(ext[1]), psum.data_ptr(),
+                    entry="mlp_pass_launch")
+        mean, var = empty(cout), empty(cout)
+        cuda.launch("fused_mlp", dev, psum.data_ptr(), tiles, cout, rows,
+                    mean.data_ptr(), var.data_ptr(), entry="mlp_stats_launch")
+        means.append(mean)
+        variances.append(var)
+        muls.append(bn_mul(var, scales[j], eps))
+        a = out  # the pass's input is read no more
+    cuda.launch("fused_mlp", dev, ext[0].data_ptr(), ext[1].data_ptr(), B * S,
+                K // seg, chans[-1], means[-1].data_ptr(), muls[-1].data_ptr(),
+                biases[-1].data_ptr(), pooled.data_ptr(),
+                entry="mlp_pool_launch")
+    return tuple(means), tuple(variances)
 
 
 def kernel_mlp_pool(grouped, weights, scales, biases, ra_means, ra_vars,
                     train: bool, eps: float):
-    """The CUDA kernel on card tensors: the same signature and results as
+    """The CUDA kernels on card tensors: the same signature and results as
     `plain_mlp_pool` (no autograd)."""
     _check(grouped, weights, scales, biases, ra_means, ra_vars, train)
-    B, S, K, _ = grouped.shape
-    L = len(weights)
+    B, S, _, _ = grouped.shape
     pooled = torch.empty(B, S, weights[-1].shape[1], dtype=torch.float32,
                          device=grouped.device)
-    if B * S == 0:
-        raise ValueError("fused_mlp: empty input")
     if not train:
-        mus = list(ra_means)
         muls = [bn_mul(v, s, eps) for v, s in zip(ra_vars, scales)]
-        _launch(grouped, weights, biases, mus, muls, L, -1, pooled)
+        _eval_launch(grouped, weights, biases, ra_means, muls, pooled)
         fused_mlp_pool.launches += 1
         return pooled, (), ()
-    mus, muls, means, variances = [], [], [], []
-    for p in range(L):
-        mean, var = _launch(grouped, weights, biases, mus, muls, p + 1, p)
-        means.append(mean)
-        variances.append(var)
-        mus.append(mean)
-        muls.append(bn_mul(var, scales[p], eps))
-    _launch(grouped, weights, biases, mus, muls, L, -1, pooled)
+    means, variances = _train_launches(grouped, weights, scales, biases, eps,
+                                       pooled)
     fused_mlp_pool.launches += 1
-    return pooled, tuple(means), tuple(variances)
+    return pooled, means, variances
 
 
 class _FusedMLPPool(torch.autograd.Function):
@@ -249,8 +320,8 @@ def fused_mlp_pool(grouped, weights, scales, biases, ra_means=(), ra_vars=(),
     which uses `ra_means`/`ra_vars`. weights[i] is (C_{i-1}, C_i), as the
     JAX package's Dense kernels. Gradients flow to grouped, weights, scales
     and biases, never to the running statistics. Each call on the card adds
-    one to `fused_mlp_pool.launches` (a train-mode call runs L+1 kernel
-    passes)."""
+    one to `fused_mlp_pool.launches` (an eval-mode call is one kernel
+    launch, a train-mode call 2L+1)."""
     L = len(weights)
     ra = () if train else (*ra_means, *ra_vars)
     out = _FusedMLPPool.apply(L, bool(train), float(eps), grouped,
@@ -260,4 +331,4 @@ def fused_mlp_pool(grouped, weights, scales, biases, ra_means=(), ra_vars=(),
     return out[0], tuple(out[1:1 + L]), tuple(out[1 + L:])
 
 
-fused_mlp_pool.launches = 0  # calls that launched the kernel since set to 0
+fused_mlp_pool.launches = 0  # calls that launched the kernels since set to 0

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
 """Times of the PyTorch port's FPS and ball query entry points (`fps`,
 `ball_query_group`, `ball_query`) at the eval forward's shapes (six FPS
-calls, five ball queries), read from three clocks:
+calls, five ball queries), and of the fused SA-MLP kernels
+(`ops.fused_mlp.kernel_mlp_pool`) on the four calls of a `fused_sa=True`
+eval forward (B=16) and of a train-mode forward (B=3), read from three
+clocks:
 
 - events: CUDA events around 10 back-to-back Python calls, divided by 10
-  (what chip_smoke.py's phase 6 reports as a kernel's ms);
+  (what chip_smoke.py's phases 6 and 10 report as a kernel's ms);
 - device: the kernels' own time a call, from a torch.profiler trace of 10
-  more calls: each kernel's mean over its traced launches (the profiler may
+  more calls: each kernel's mean over its traced launches times its
+  launches a call (the traced count over 10, rounded; the profiler may
   drop some records, now and then a whole trace's, which is then taken
   again, up to 3 times), summed over the kernels (a ball query call on rows
-  above 2048 points is two kernels, the chunk-box pre-pass and the query);
-- host: the host clock around 100 calls (FPS: 10) that are not waited for,
-  divided by their number (the wrapper's cost a call, while the card keeps
-  up).
+  above 2048 points is two kernels, the chunk-box pre-pass and the query; a
+  fused train-mode call is its GEMM passes, stats and pool launches);
+- host: the host clock around 100 calls (FPS and the fused kernels: 10)
+  that are not waited for, divided by their number (the wrapper's cost a
+  call, while the card keeps up).
+
+Fused rows add the plain version's time (events; the cuBLAS GEMM +
+elementwise chain that fused_sa=False runs).
 
 Where events read more than device, the calls are host-bound and events
 measure the wrapper. FPS rows add the device time a step (device / (npoint
@@ -24,12 +32,15 @@ kernel ran with. Run on a CUDA card from the root of a checkout:
 `--root` names the checkout whose omni_pq_torch is measured (default: the
 one holding this script), so that two commits can be compared in one run on
 one card. The inputs are chip_smoke.py's phase 3: the full-width
-ModelConfig() eval forward on 16 synthetic 40 000-point scenes from seed 0.
-Prints one JSON line (also written to --out).
+ModelConfig() eval forward on 16 synthetic 40 000-point scenes from seed 0;
+the fused train-mode calls come from the first 3 of those scenes, weights
+from seed 0 and dropout from a generator seeded 0. Prints one JSON line
+(also written to --out).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import os
@@ -44,7 +55,37 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the kernels of each entry point, as torch.profiler names them
 KERNELS = {"fps": r"::fps_kernel\b",
            "ball_query_group": r"::(ball_query|chunk_box)_kernel\b",
-           "ball_query": r"::(ball_query|chunk_box)_kernel\b"}
+           "ball_query": r"::(ball_query|chunk_box)_kernel\b",
+           # the pass plan's kernels, and the stats kernel of the train
+           # mode's earlier chained design, for A/B runs against it
+           "fused_mlp": r"::(fused_mlp|fused_mlp_stats|mlp_pass|mlp_stats"
+                        r"|mlp_pool)_kernel\b"}
+TRAIN_B = 3
+
+
+def fused_calls(ops, model, pc, train, generator=None):
+    """The (args of kernel_mlp_pool) of each fused_mlp_pool call of one
+    forward of `model`."""
+    import torch
+    calls = []
+    real = ops.fused_mlp_pool
+
+    def recorder(grouped, weights, scales, biases, ra_means=(), ra_vars=(),
+                 *, train, eps=1e-5):
+        calls.append(tuple(t.detach() if torch.is_tensor(t) else
+                           [x.detach().clone() for x in t]
+                           for t in (grouped, weights, scales, biases,
+                                     ra_means, ra_vars)) + (train, eps))
+        return real(grouped, weights, scales, biases, ra_means, ra_vars,
+                    train=train, eps=eps)
+    ops.fused_mlp_pool = recorder
+    try:
+        with torch.no_grad():
+            model.train(train)
+            model(pc, generator=generator) if train else model(pc)
+    finally:
+        ops.fused_mlp_pool = real
+    return calls
 
 
 def main() -> int:
@@ -64,6 +105,7 @@ def main() -> int:
     from omni_pq_torch.config import ModelConfig
     from omni_pq_torch.data import make_batch
     from omni_pq_torch.infer import build_model, eval_forward
+    from omni_pq_torch.ops.fused_mlp import kernel_mlp_pool, plain_mlp_pool
     pkg = os.path.dirname(os.path.abspath(ops.__file__))
     if not pkg.startswith(root + os.sep):
         raise RuntimeError(f"imported omni_pq_torch from {pkg}, not {root}")
@@ -91,9 +133,16 @@ def main() -> int:
     bq.append(("vote_aggregation", (0.3, cfg.vote_aggregation_nsample,
                                     ep["vote_xyz"], ep["aggregated_vote_xyz"])))
     calls["ball_query_group"] = calls["ball_query"] = bq
+    fused = build_model(dataclasses.replace(cfg, fused_sa=True), dev, seed=0)
+    calls["fused_mlp"] = [
+        (f"sa{i + 1} {'train' if train else 'eval'}", fargs)
+        for train, x, gen in (
+            (False, pc, None),
+            (True, pc[:TRAIN_B], torch.Generator(dev).manual_seed(0)))
+        for i, fargs in enumerate(fused_calls(ops, fused, x, train, gen))]
     rows = []
     for entry, entry_calls in calls.items():
-        fn = getattr(ops, entry)
+        fn = kernel_mlp_pool if entry == "fused_mlp" else getattr(ops, entry)
         for name, fargs in entry_calls:
             def run():
                 fn(*fargs)
@@ -124,9 +173,10 @@ def main() -> int:
             for e in kern:
                 short = re.search(KERNELS[entry], e.key).group(0)[2:]
                 by_kernel[short] = (by_kernel.get(short, 0.0)
-                                    + e.self_device_time_total / 1e3 / e.count)
+                                    + e.self_device_time_total / 1e3 / e.count
+                                    * max(1, round(e.count / 10)))
             device_ms = sum(by_kernel.values()) if kern else None
-            n_host = 10 if entry == "fps" else 100
+            n_host = 100 if entry.startswith("ball_query") else 10
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(n_host):
@@ -137,7 +187,22 @@ def main() -> int:
             row = dict(entry=entry, call=name, events_ms=events_ms,
                        device_ms=device_ms, by_kernel=by_kernel,
                        traced_launches=launches, host_us=host_us)
-            if entry == "fps":
+            if entry == "fused_mlp":
+                g = fargs[0]
+                chans = [g.shape[3]] + [w.shape[1] for w in fargs[1]]
+                row["shape"] = (f"B{g.shape[0]} S{g.shape[1]} K{g.shape[2]} "
+                                f"C{'/'.join(map(str, chans))}")
+                with torch.no_grad():
+                    plain = lambda: plain_mlp_pool(*fargs)  # noqa: E731
+                    plain()
+                    torch.cuda.synchronize()
+                    start.record()
+                    for _ in range(3):
+                        plain()
+                    end.record()
+                    end.synchronize()
+                row["plain_ms"] = start.elapsed_time(end) / 3
+            elif entry == "fps":
                 npoint = fargs[1]
                 row.update(shape=f"B{x.shape[0]} N{x.shape[1]} -> {npoint}",
                            device_us_per_step=(device_ms * 1e3 / (npoint - 1)

@@ -9,6 +9,13 @@ and the gradients of a fixed linear functional of the output. Then
 SAModuleVotes and the whole PQTransformer with fused_sa=True at a small
 config whose SA widths pass the gate (backbone_width=2: 128..512 channels).
 
+The train mode's pass plan (`ops.fused_mlp.pass_plan`: one GEMM pass a
+layer over stored pre-activations, BN + ReLU on load, a_1 recomputed from
+the grouped rows where C0 is tiny, the last pass keeping each centre's max
+and min) is run by a test-local torch model of its dataflow, which must be
+bitwise equal to the plain version, and its cost (chains of products,
+scratch bytes) is checked at the four full-width SA shapes.
+
 Tolerances: 1e-5 abs + rel between the two plain versions (the same
 arithmetic, summed in another order by XLA:CPU and ATen); 5e-5 abs against
 the Pallas kernel (its stats reduce per tile), as tests/test_fused_mlp.py
@@ -47,7 +54,9 @@ SHAPES = {"even": (2, 24, 16, 4, (128, 256)),
           "three_layers": (2, 8, 8, 19, (128, 128, 256))}
 
 
-def _inputs(name, seed=0):
+def _inputs(name, seed=0, signs=False):
+    """signs: BN scales of both signs and exact zeros (+0 and -0), so that
+    the pool of the train mode's pass plan takes minima too."""
     B, S, K, C0, widths = SHAPES[name]
     r = np.random.default_rng(seed)
     f = lambda *s: r.normal(size=s).astype(np.float32)  # noqa: E731
@@ -56,7 +65,11 @@ def _inputs(name, seed=0):
     cin = C0
     for c in widths:
         ks.append(f(cin, c) / np.float32(np.sqrt(cin)))
-        ss.append(r.uniform(0.5, 1.5, c).astype(np.float32))
+        scale = r.uniform(0.5, 1.5, c).astype(np.float32)
+        if signs:
+            scale[1::3] *= -1
+            scale[2], scale[5] = 0.0, -0.0
+        ss.append(scale)
         bs.append((0.1 * f(c)).astype(np.float32))
         rm.append((0.2 * f(c)).astype(np.float32))
         rv.append(r.uniform(0.5, 1.5, c).astype(np.float32))
@@ -285,3 +298,101 @@ def test_whole_model_fused_matches_jax(fused_model_outputs, train):
             np.testing.assert_allclose(got_sd[k].numpy(),
                                        want_sd[k].numpy(), rtol=1e-4,
                                        atol=1e-4, err_msg=k)
+
+
+def _pass_model(grouped, weights, scales, biases, eps):
+    """The train mode's pass plan as torch ops on the CPU, with the plain
+    version's products (torch.matmul on the (B, S, K, C) shapes) and stats
+    ops: each pass reads what the plan says it reads (the grouped rows, the
+    stored a_j with BN + ReLU on load, or a_1 recomputed from the grouped
+    rows), stores only what the plan stores, and the last keeps each
+    centre's max and min of a_L, from which the pool takes the BN + ReLU of
+    the max where mul >= 0 and of the min where mul's sign bit is set.
+    Returns (pooled, means, vars, the passes' sources and stores)."""
+    chans = [grouped.shape[-1]] + [w.shape[1] for w in weights]
+    stored, means, variances, muls, trace = {}, [], [], [], []
+    h = lambda j, a: torch.relu(  # noqa: E731
+        (a - means[j - 1]) * muls[j - 1] + biases[j - 1])
+    for p in tfused.pass_plan(chans):
+        j = p.layer
+        if p.source == "x":
+            lhs = grouped
+        elif p.source == "x@W0":
+            lhs = h(1, torch.matmul(grouped, weights[0]))
+        else:
+            lhs = h(j, stored.pop(j))  # read once, then freed
+        a = torch.matmul(lhs, weights[j])
+        mu = a.mean(dim=(0, 1, 2))
+        var = torch.clamp_min((a * a).mean(dim=(0, 1, 2)) - mu * mu, 0.0)
+        means.append(mu)
+        variances.append(var)
+        muls.append(tfused.bn_mul(var, scales[j], eps))
+        if p.store:
+            stored[j + 1] = a
+        if p.extremes:
+            ext = a.amax(dim=2), a.amin(dim=2)
+        trace.append((p.source, p.store, p.extremes))
+    assert not stored  # every stored a_j was read by the next pass
+    sel = torch.where(torch.signbit(muls[-1]), ext[1], ext[0])
+    pooled = torch.relu((sel - means[-1]) * muls[-1] + biases[-1])
+    return pooled, tuple(means), tuple(variances), trace
+
+
+@pytest.mark.parametrize("signs", [False, True], ids=["scales_pos",
+                                                      "scales_signed"])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_pass_plan_model_matches_plain_and_jax(name, signs):
+    """The pass plan's dataflow, as torch ops, is bitwise the plain train
+    mode (the same products and stats ops; the pool from extremes is exact,
+    since BN + ReLU is monotone in a), and within this file's tolerance of
+    the JAX package's fused_mlp_pool(train=True) (its Pallas kernel in
+    interpret mode) on the same numpy inputs; with BN scales of both signs
+    and exact zeros too."""
+    grouped, ks, ss, bs, rm, rv, _ = _inputs(name, signs=signs)
+    t = [torch.from_numpy(a) for a in ks], [torch.from_numpy(a) for a in ss], \
+        [torch.from_numpy(a) for a in bs]
+    g = torch.from_numpy(grouped)
+    pooled, means, variances, trace = _pass_model(g, *t, EPS)
+    want = tfused.plain_mlp_pool(g, *t, (), (), True, EPS)
+    assert torch.equal(pooled, want[0])
+    for a, b in zip(means + variances, want[1] + want[2]):
+        assert torch.equal(a, b)
+    L, C0 = len(ks), grouped.shape[-1]
+    recompute = L >= 2 and C0 <= tfused.RECOMPUTE_MAX_C0
+    assert trace[0] == ("x", L > 1 and not recompute, L == 1)
+    if recompute:
+        assert trace[1][0] == "x@W0"
+    assert [x[2] for x in trace] == [False] * (L - 1) + [True]
+    jout = jax.jit(lambda: jfused.fused_mlp_pool(
+        grouped, ks, ss, bs, rm, rv, train=True, eps=EPS,
+        dtype=jnp.float32))()
+    jpooled, jmeans, jvars = jax.tree.map(np.asarray, jout)
+    np.testing.assert_allclose(pooled.numpy(), jpooled, rtol=5e-5, atol=5e-5)
+    for a, b in zip(means + variances, tuple(jmeans) + tuple(jvars)):
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-5)
+
+
+# the full-width SA layers at the reference's train batch (B=3): (S, K,
+# widths), and the scratch the plan keeps alive at most (bytes)
+FULL_WIDTH_SA = {"sa1": (2048, 64, (3, 128, 128, 256), 201326592),
+                 "sa2": (1024, 32, (259, 256, 256, 512), 201326592),
+                 "sa3": (512, 16, (515, 256, 256, 512), 50331648),
+                 "sa4": (256, 16, (515, 256, 256, 512), 25165824)}
+
+
+@pytest.mark.parametrize("layer", sorted(FULL_WIDTH_SA))
+def test_pass_plan_costs_at_full_width(layer):
+    """One chain of products (1.008 at sa1, whose a_1 is recomputed from
+    the xyz rows instead of stored), and at most two stored pre-activations
+    alive: a_2 alone at sa1, a_1 + a_2 at sa2-sa4."""
+    S, K, chans, scratch = FULL_WIDTH_SA[layer]
+    rows = 3 * S * K
+    ops_n, peak = tfused.plan_costs(chans, rows)
+    chain = 2 * rows * sum(a * b for a, b in zip(chans[:-1], chans[1:]))
+    assert 1.0 <= ops_n / chain <= 1.01
+    assert peak == scratch
+    plan = tfused.pass_plan(chans)
+    assert [p.source for p in plan] == (
+        ["x", "x@W0", "a"] if layer == "sa1" else ["x", "a", "a"])
+    assert [p.store for p in plan] == (
+        [False, True, False] if layer == "sa1" else [True, True, False])

@@ -1,4 +1,5 @@
-"""The index logic of the port's FPS and ball-query CUDA kernels, on the CPU.
+"""The index logic of the port's FPS and ball-query CUDA kernels, and the BN +
+ReLU step and pool of its fused SA-MLP kernels, on the CPU.
 
 `omni_pq_torch/csrc/point_logic.cuh` holds what the kernels decide beyond
 plain arithmetic, and nothing the kernels do not compile: the FPS launch
@@ -10,6 +11,12 @@ kernels; here g++ compiles it into a small host harness
 (`tests/torch_kernel_logic_harness.cpp`, `-ffp-contract=off`, so no product
 is fused into an FMA, as in the kernels' `__f*_rn` arithmetic), loaded with
 ctypes. The tests skip only when g++ is missing.
+
+`omni_pq_torch/csrc/mlp_logic.cuh` holds the fused SA-MLP kernels' BN + ReLU
+step and the train mode's pool from a centre's max and min
+(`pool_from_extremes`); the same harness builds it, and it must equal numpy
+float32's relu((a - mu) * mul + b), computed op by op, bitwise, and the max
+of that over a centre's rows.
 
 The harness builds serial models of the kernels' loops from the header: FPS
 over the slices of a P-CTA cluster (each thread's first maximum, each
@@ -77,6 +84,12 @@ def lib(tmp_path_factory):
     h.bq_box_misses.argtypes = [_F32, ctypes.c_int, _F32, ctypes.c_int,
                                 ctypes.c_float]
     h.bq_box_misses.restype = ctypes.c_longlong
+    h.mlp_pool.argtypes = [_F32, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           _F32, _F32, _F32, _F32]
+    h.mlp_pool.restype = None
+    h.mlp_bn_relu.argtypes = [_F32, ctypes.c_longlong, ctypes.c_int, _F32,
+                              _F32, _F32, _F32]
+    h.mlp_bn_relu.restype = None
     return h
 
 
@@ -259,3 +272,65 @@ def test_box_test_never_drops_a_hit(lib, case):
         row, xp = _f32(xyz[b])
         c, cp = _f32(ctr[b])
         assert lib.bq_box_misses(xp, row.shape[0], cp, c.shape[0], r2) == 0
+
+
+def _bn_relu_np(a, mu, mul, b):
+    """relu(((a - mu) * mul) + b) in numpy float32, one rounding an op; the
+    relu gives +0 for every value <= 0, as the kernels' does."""
+    y = ((a - mu) * mul) + b
+    return np.where(y > 0, y, np.float32(0))
+
+
+def _mlp_case(name):
+    """(a (centres, K, C), mu, mul, b) float32. mul has both signs, +0 and
+    -0 in every case."""
+    r = np.random.default_rng(13)
+    centres, K, C = 6, 16, 12
+    a = r.normal(size=(centres, K, C)).astype(np.float32)
+    mu = r.normal(0, 0.3, C).astype(np.float32)
+    mul = (r.uniform(0.5, 2.0, C) * np.where(np.arange(C) % 2, -1, 1)
+           ).astype(np.float32)
+    mul[2], mul[3] = 0.0, -0.0
+    b = r.normal(0, 0.2, C).astype(np.float32)
+    if name == "ties":  # a centre's max and min each held by several rows
+        a[:, ::4] = a[:, :1]
+        a[:, 1::5] = a[:, 2:3]
+        a[3] = a[3, :1]  # a constant centre
+    if name == "all_negative":  # every value of a centre relus to 0
+        a[2] = np.where(mul > 0, -50.0, 50.0).astype(np.float32)
+        a[2, :, 2:4] = 0.0
+        b[2:4] = -0.5
+    if name == "zero_bias":  # b = +0 and -0: the -0 sums of mul = +-0
+        b[:] = 0.0
+        b[1::2] = -0.0
+        a[1] = mu  # a - mu = 0 exactly
+    return a, mu, mul, b
+
+
+@pytest.mark.parametrize("case", ["signs", "ties", "all_negative",
+                                  "zero_bias"])
+def test_pool_from_extremes_is_the_max_of_bn_relu_bitwise(lib, case):
+    """mlp_logic::bn_relu equals numpy's op-by-op float32 relu((a - mu) *
+    mul + b) bitwise, and the train mode's pool, bn_relu of each channel's
+    max (mul >= 0) or min (mul < 0, sign bit set) over a centre's rows,
+    equals the max over the rows of bn_relu bitwise, for mul of both signs,
+    +0 and -0, ties within a centre and centres whose values all relu to
+    0."""
+    a, mu, mul, b = _mlp_case(case)
+    centres, K, C = a.shape
+    a_c, ap = _f32(a)
+    vecs = [_f32(v) for v in (mu, mul, b)]
+    want_h = _bn_relu_np(a, mu, mul, b)
+    got_h = np.zeros_like(a)
+    lib.mlp_bn_relu(ap, a.size, C, *(p for _, p in vecs),
+                    got_h.ctypes.data_as(_F32))
+    np.testing.assert_array_equal(got_h.view(np.uint32),
+                                  want_h.view(np.uint32))
+    want = want_h.max(axis=1)
+    got = np.zeros((centres, C), np.float32)
+    lib.mlp_pool(ap, centres, K, C, *(p for _, p in vecs),
+                 got.ctypes.data_as(_F32))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert not np.signbit(got).any()  # the pool is never -0
+    if case == "all_negative":
+        assert (got[2] == 0).all()

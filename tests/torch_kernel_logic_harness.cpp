@@ -1,15 +1,18 @@
 // Host harness of omni_pq_torch/csrc/point_logic.cuh, the index logic of the
-// FPS and ball-query CUDA kernels. It builds serial models of the kernels'
-// loops from the header's functions, one lane at a time: FPS's per-thread,
-// per-warp and per-slot candidates, and the ball query's chunk boxes and
-// ascending chunk-skipping query of one centre. The models are this file's
+// FPS and ball-query CUDA kernels, and of csrc/mlp_logic.cuh, the BN + ReLU
+// step and pool of the fused SA-MLP kernels. It builds serial models of the
+// kernels' loops from the headers' functions, one lane at a time: FPS's
+// per-thread, per-warp and per-slot candidates, the ball query's chunk boxes
+// and ascending chunk-skipping query of one centre, and the fused train
+// mode's pool from each centre's max and min. The models are this file's
 // own (the kernels run the same decisions as warp-wide ballots and
-// butterflies); what they share with the kernels is the header.
+// butterflies); what they share with the kernels is the headers.
 // tests/test_torch_port_kernel_logic.py builds it with
 //   g++ -O2 -ffp-contract=off -std=c++17 -shared -fPIC -I omni_pq_torch/csrc
 // and holds it against the plain versions and the JAX package's oracles.
 #include <vector>
 
+#include "mlp_logic.cuh"
 #include "point_logic.cuh"
 
 using namespace point_logic;
@@ -183,6 +186,32 @@ long long bq_box_misses(const float* p, int N, const float* ctr, int S,
         }
     }
   return misses;
+}
+
+// The fused train mode's pool of `centres` centres of K rows of C channels
+// (a row-major (centres * K, C)): each channel's max and min over a centre's
+// rows, as the last pass keeps them, then mlp_logic::pool_from_extremes
+// with that channel's BN, as the pool launch computes it.
+void mlp_pool(const float* a, int centres, int K, int C, const float* mu,
+              const float* mul, const float* b, float* out) {
+  for (int n = 0; n < centres; ++n)
+    for (int c = 0; c < C; ++c) {
+      float mx = a[(static_cast<long long>(n) * K) * C + c], mn = mx;
+      for (int k = 1; k < K; ++k) {
+        const float v = a[(static_cast<long long>(n) * K + k) * C + c];
+        mx = fmaxf(mx, v);
+        mn = fminf(mn, v);
+      }
+      out[static_cast<long long>(n) * C + c] =
+          mlp_logic::pool_from_extremes(mx, mn, mu[c], mul[c], b[c]);
+    }
+}
+
+// mlp_logic::bn_relu of each of n elements with channel c = i % C's BN
+void mlp_bn_relu(const float* a, long long n, int C, const float* mu,
+                 const float* mul, const float* b, float* out) {
+  for (long long i = 0; i < n; ++i)
+    out[i] = mlp_logic::bn_relu(a[i], mu[i % C], mul[i % C], b[i % C]);
 }
 
 }  // extern "C"
