@@ -61,8 +61,9 @@ when every phase passed:
      aggregation shapes, B=16, on phase 3's points, centres and input
      features: bitwise equal to its plain version (float32 everywhere,
      bfloat16 at sa3), its backward within 1e-6 of the gradient norm of the
-     CPU's at sa3 and vote aggregation; kernel, plain and bound times beside
-     the composition it would replace (ball_query_group + group_points).
+     CPU's at sa3 and vote aggregation; kernel (events and profiler device
+     time), plain and bound times beside the composition it would replace
+     (ball_query_group + group_points).
  12. the semi-supervised step (TrainFlags(): EMA teacher + gamma mixture)
      at full width on 3 labeled + 3 weak scenes, both routes from the same
      weights, 3 steps each: finite stats with the JAX step's names, 12 FPS,
@@ -75,10 +76,43 @@ when every phase passed:
      mixture and the ARKit loss; warmed ms/step in turns, peak memory, a
      profile of one step per route; one step with the last quad head rigged
      so that the gamma criterion engages (gamma_engaged_frac > 0).
+ 13. bfloat16 serving path: ModelConfig(compute_dtype="bfloat16",
+     fused_sa=True) eval forward, B=16, same weights and scenes: 6 FPS, 5
+     ball-query and 4 bfloat16 fused launches (counters, and 4
+     fused_mlp_bf16_kernel launches in a profile); indices and the quad
+     queries bitwise phase 3's (they depend on xyz only); sa1-4/fp2
+     features within BF16_ROUTE_NORM_REL of their norm and
+     BF16_ROUTE_ELEMENT_OF_MAX of their largest value of the unfused
+     bfloat16 forward, while a control (the same forward with each fused
+     call the float32 chain, rounded to bfloat16 at its output) falls
+     outside the norm bound at every feature; their gap to float32 printed;
+     every key finite; vote-aggregation FPS picks that moved counted;
+     ms/batch, scenes/s and peak memory in turns against phase 3's float32
+     forward.
+ 14. the bfloat16 eval kernel against its plain bfloat16 version (the
+     cuBLAS chain with float32 sums) on phase 13's calls (B=16): pooled
+     output within BF16_NORM_REL of its norm and BF16_ELEMENT_OF_MAX of its
+     largest value, while the float32 chain rounded at its output falls
+     outside the norm bound; CUDA events, profiler device time, the plain
+     chain's time and the bound (bytes over 3.35 TB/s, operations over 989
+     TFLOP/s dense bfloat16).
+ 15. the CLIs' default training configuration: the semi-supervised step
+     with a bfloat16 student and TrainFlags(teacher_bf16=True), 3 + 3
+     scenes, both routes, 2 steps each: finite stats with the JAX step's
+     names, 12 FPS, 10 ball-query and (fused) 8 bfloat16 fused launches;
+     the fused step's 8 train-mode calls (student and bfloat16 teacher,
+     B=6) held against their plain bfloat16 version as in phase 14 (batch
+     statistics too) and timed likewise; warmed ms/step in turns, peak
+     memory, a profile of one step per route (kernel time, busy share,
+     every bfloat16 pass, stats and pool launch seen).
+ 16. the float32 fused eval mode at K = 128 and 200 with sa2's widths,
+     where a chained tile does not fit in shared memory (the pass plan with
+     the running statistics): within 1e-4 of the plain version.
 The second-last line is the kernels JSON, the last the device JSON. Details
 go to chiprun_out/chip_smoke.json, chiprun_out/chip_smoke_profile.txt,
-chiprun_out/chip_smoke_train_profile.txt and
-chiprun_out/chip_smoke_semi_profile.txt.
+chiprun_out/chip_smoke_train_profile.txt,
+chiprun_out/chip_smoke_semi_profile.txt and
+chiprun_out/chip_smoke_bf16_semi_profile.txt.
 """
 from __future__ import annotations
 
@@ -101,6 +135,7 @@ TRAIN_B = 3            # the reference's train batch (--batch_size 3)
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 on the tensor cores, dense
 FPS_OPS_PER_POINT = 10      # 3 sub, 3 mul, 2 add, 1 min, 1 compare
 BQ_OPS_PER_POINT = 9        # 3 sub, 3 mul, 2 add, 1 compare
 BQ_BOX_OPS = 18             # a box test: 6 sub, 6 max, 3 mul, 2 add, 1 compare
@@ -108,11 +143,41 @@ BQ_BOX_OPS = 18             # a box test: 6 sub, 6 max, 3 mul, 2 add, 1 compare
 # ball query call is the chunk-box pre-pass and the query)
 KERNEL_NAMES = {"fps": r"::fps_kernel\b",
                 "ball_query": r"::(ball_query|chunk_box)_kernel\b",
-                "fused_mlp": r"::(fused_mlp|mlp_pass|mlp_stats|mlp_pool)"
-                             r"_kernel\b"}
+                "fused_mlp": r"::(fused_mlp(_bf16)?|mlp_pass(_bf16)?|mlp_stats"
+                             r"|mlp_pool)_kernel\b"}
 # fused SA-MLP vs its plain version: products summed in another order
 FUSED_TOL = dict(rtol=1e-4, atol=1e-4)       # pooled output, batch means
 FUSED_VAR_TOL = dict(rtol=1e-4, atol=1e-5)   # batch variances
+# the bfloat16 fused kernels against their plain bfloat16 version (cuBLAS,
+# float32 sums): each product summed in another order flips a rounding of
+# af to bfloat16 by one ulp now and then, and a flip's trace through the
+# next layers stays a few ulps on a small share of the values. The bounds
+# sit between what the kernels read and what a control reads: the float32
+# chain rounded to bfloat16 only at its output, on the same inputs (checked
+# to fall outside the norm bound in every run). Measured (H100 80GB HBM3,
+# 700 W), at the main path's 12 bf16 calls (eval B=16, the semi step's
+# train calls B=6): the pooled output's norm-relative gap 0-8.2e-4, the
+# control's 3.8e-3-8.3e-3: bound 2^-9. Batch means within 2^-12 (1 + max
+# |mean|), variances 2^-11 relative + 2^-12: the kernels' largest gaps take
+# 3.8 % and 6.0 % of these, the control's 3.1-5.9 times them (checked too).
+# The largest gap over the largest magnitude reads 0-1.1e-2 and the
+# control's 4.6e-3-1.7e-2: it cannot tell the two apart, and is a gross
+# bound (a wrong element), 2^-5.
+BF16_NORM_REL = 2.0 ** -9
+BF16_ELEMENT_OF_MAX = 2.0 ** -5
+BF16_MEAN_REL = 2.0 ** -12
+BF16_VAR_TOL = dict(rtol=2.0 ** -11, atol=2.0 ** -12)
+# the fused bfloat16 forward against the unfused bfloat16 one, end to end
+# (sa1-4, fp2 features), against the same control in every fused call:
+# measured 0-2.04e-3 of the norm (the flips cascade: sa4 1.4e-3, fp2 2.0e-3)
+# and the control 3.76e-3 (sa1)-6.8e-3: bound 2.8e-3; the largest gap over
+# the largest magnitude 0-5.9e-3 (control 8.2e-3-1.2e-2), a gross bound 2^-4
+BF16_ROUTE_NORM_REL = 2.8e-3
+BF16_ROUTE_ELEMENT_OF_MAX = 2.0 ** -4
+# the fused eval mode at K where a chained tile does not fit in shared
+# memory (it runs the pass plan): sa2's widths at B=2, S=1024
+REPAIR_CASES = {"k128_sa2": (2, 1024, 128, 259, (256, 256, 512)),
+                "k200_sa2": (2, 1024, 200, 259, (256, 256, 512))}
 # the fused route against the unfused one, end to end
 ROUTE_FEATURE_TOL = dict(rtol=1e-4, atol=1e-4)  # sa1-4, fp2 (eval forward)
 # train mode, the backbone alone (no discrete decision downstream):
@@ -183,9 +248,9 @@ def wall_ms_per_call(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bound_ms(nbytes: float, nops: float):
+def bound_ms(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -279,11 +344,14 @@ def chain_flops(rows: int, chans) -> int:
     return 2 * rows * sum(a * b for a, b in zip(chans[:-1], chans[1:]))
 
 
-def fused_train_launches(layers) -> dict:
+def fused_train_launches(layers, bf16: bool = False) -> dict:
     """The fused kernels' launches of train-mode calls of `layers` layers
-    each, by profiler name: each call L GEMM passes, L stats launches and
-    one pool launch; the eval mode's chained kernel none."""
-    return {"fused_mlp_kernel": 0, "mlp_pass_kernel": sum(layers),
+    each, by profiler name: each call L GEMM passes (the bfloat16 ones
+    where `bf16`), L stats launches and one pool launch; the eval mode's
+    chained kernels none."""
+    b = "_bf16" if bf16 else ""
+    return {"fused_mlp_kernel": 0, "fused_mlp_bf16_kernel": 0,
+            f"mlp_pass{b}_kernel": sum(layers),
             "mlp_stats_kernel": sum(layers), "mlp_pool_kernel": len(layers)}
 
 
@@ -303,7 +371,7 @@ def record_fused_calls(ops, records):
     real = ops.fused_mlp_pool
 
     def recorder(grouped, weights, scales, biases, ra_means=(), ra_vars=(),
-                 *, train, eps=1e-5):
+                 *, train, eps=1e-5, dtype=None):
         # clones: the optimiser updates the parameters in place afterwards
         records.append(dict(
             grouped=grouped.detach(),
@@ -312,9 +380,9 @@ def record_fused_calls(ops, records):
             biases=[t.detach().clone() for t in biases],
             ra_means=[t.detach().clone() for t in ra_means],
             ra_vars=[t.detach().clone() for t in ra_vars], train=train,
-            eps=eps))
+            eps=eps, dtype=dtype or grouped.dtype))
         return real(grouped, weights, scales, biases, ra_means, ra_vars,
-                    train=train, eps=eps)
+                    train=train, eps=eps, dtype=dtype or grouped.dtype)
 
     ops.fused_mlp_pool = recorder
 
@@ -470,8 +538,9 @@ def profile_step(run, expect, step_ms):
                      and e.self_device_time_total > 0), reverse=True)
     kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in events if e.device_type == DeviceType.CUDA
-                   and re.search(r"::(fused_mlp|mlp_pass|mlp_stats|mlp_pool"
-                                 r"|ball_query|fps)_kernel\b", e.key)),
+                   and re.search(r"::(fused_mlp(_bf16)?|mlp_pass(_bf16)?"
+                                 r"|mlp_stats|mlp_pool|ball_query|fps)"
+                                 r"_kernel\b", e.key)),
                   reverse=True)
     seen = {name: sum(c for _, c, k in kern
                       if re.search(rf"::{name}\b", k)) for name in expect}
@@ -656,35 +725,94 @@ def train_phase(cfg, dev, counted, card):
                         for k, v in routes.items()}), records
 
 
+def bf16_gaps(got, want):
+    """(norm-relative gap, largest gap over the largest |want|) of a
+    bfloat16 result against its reference."""
+    g, w = got.double(), want.double()
+    return (float((g - w).norm() / w.norm().clamp_min(1e-30)),
+            float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)))
+
+
+def bf16_readings(got, want) -> dict:
+    """A bfloat16 fused call's result (pooled, means, variances) against its
+    plain version: the pooled output's gaps (bf16_gaps), and the largest
+    share of its bound that an element of a batch mean or variance takes
+    (1 at the bound)."""
+    rel, of_max = bf16_gaps(got[0], want[0])
+    mean = [float((a - b).abs().max()) / (BF16_MEAN_REL
+                                          * (1 + float(b.abs().max())))
+            for a, b in zip(got[1], want[1])]
+    var = [float(((a.double() - b.double()).abs()
+                  / (BF16_VAR_TOL["atol"]
+                     + BF16_VAR_TOL["rtol"] * b.double().abs())).max())
+           for a, b in zip(got[2], want[2])]
+    return dict(pooled_norm_rel=rel, pooled_of_max=of_max,
+                mean_share=max(mean, default=0.0),
+                var_share=max(var, default=0.0))
+
+
+def within_bf16_bounds(r) -> bool:
+    return (r["pooled_norm_rel"] <= BF16_NORM_REL
+            and r["pooled_of_max"] <= BF16_ELEMENT_OF_MAX
+            and r["mean_share"] <= 1 and r["var_share"] <= 1)
+
+
 def fused_kernel_rows(records, mode, names=None):
-    """Phase 9: the kernel against its plain version on recorded inputs
-    (one record per fused SA layer call, named sa1..sa4 in call order unless
-    `names` are given)."""
+    """Phases 9, 12, 14 and 15: the kernel against its plain version on
+    recorded inputs (one record per fused SA layer call, named sa1..sa4 in
+    call order unless `names` are given), in the call's compute dtype."""
     import torch
     from omni_pq_torch.ops.fused_mlp import (kernel_mlp_pool, plain_mlp_pool,
                                             plan_costs)
     names = names or [f"sa{i + 1}" for i in range(len(records))]
     rows = []
     for name, rec in zip(names, records):
+        dt = rec["dtype"]
         args = (rec["grouped"], rec["weights"], rec["scales"],
                 rec["biases"], rec["ra_means"], rec["ra_vars"], rec["train"],
-                rec["eps"])
+                rec["eps"], dt)
         with torch.no_grad():
             got = kernel_mlp_pool(*args)
             torch.cuda.synchronize()
             want = plain_mlp_pool(*args)
-        errs = {}
-        worst, ok = max_violation(got[0], want[0], **FUSED_TOL)
-        check(ok, f"fused_mlp {mode} {name}: pooled |diff| {worst}")
-        errs["pooled"] = worst
+        where = f"fused_mlp {mode} {name} ({dt})"
+        errs = {"pooled": float((got[0].double()
+                                 - want[0].double()).abs().max())}
         for j, (a, b) in enumerate(zip(got[1], want[1])):
-            worst, ok = max_violation(a, b, **FUSED_TOL)
-            check(ok, f"fused_mlp {mode} {name}: mean {j} |diff| {worst}")
-            errs[f"mean{j}"] = worst
+            errs[f"mean{j}"] = float((a - b).abs().max())
         for j, (a, b) in enumerate(zip(got[2], want[2])):
-            worst, ok = max_violation(a, b, **FUSED_VAR_TOL)
-            check(ok, f"fused_mlp {mode} {name}: var {j} |diff| {worst}")
-            errs[f"var{j}"] = worst
+            errs[f"var{j}"] = float((a - b).abs().max())
+        readings = control = None
+        if dt == torch.float32:
+            for what, (a, b), tol in (
+                    [("pooled", (got[0], want[0]), FUSED_TOL)]
+                    + [(f"mean {j}", ab, FUSED_TOL)
+                       for j, ab in enumerate(zip(got[1], want[1]))]
+                    + [(f"var {j}", ab, FUSED_VAR_TOL)
+                       for j, ab in enumerate(zip(got[2], want[2]))]):
+                worst, ok = max_violation(a, b, **tol)
+                check(ok, f"{where}: {what} |diff| {worst}")
+        else:
+            check(got[0].dtype == want[0].dtype == dt
+                  and bool(torch.isfinite(got[0].float()).all()),
+                  f"{where}: pooled dtype {got[0].dtype} or not finite")
+            readings = bf16_readings(got, want)
+            check(within_bf16_bounds(readings),
+                  f"{where}: {readings} outside the bounds {BF16_NORM_REL} "
+                  f"/ {BF16_ELEMENT_OF_MAX} (stats: share 1)")
+            # the control: the float32 chain, rounded to bfloat16 only at
+            # its output, must fall outside the bounds on the pooled norm
+            # and (train) the batch statistics
+            with torch.no_grad():
+                ctrl = plain_mlp_pool(*args[:-1], torch.float32)
+            control = bf16_readings((ctrl[0].to(dt), *ctrl[1:]), want)
+            del ctrl
+            check(control["pooled_norm_rel"] > BF16_NORM_REL and (
+                not rec["train"] or min(control["mean_share"],
+                                        control["var_share"]) > 1),
+                  f"{where}: the float32 chain reads {control} against the "
+                  f"plain bfloat16 chain, within the bounds: the check "
+                  "cannot tell them apart")
         Bx, S, K, C0 = rec["grouped"].shape
         chans = [C0] + [w.shape[1] for w in rec["weights"]]
         L = len(rec["weights"])
@@ -694,20 +822,250 @@ def fused_kernel_rows(records, mode, names=None):
         # train call runs its pass plan (one chain, plus the recompute of
         # a_1 where C0 is tiny), writing and reading back the stored
         # pre-activations (scratch_bytes: the most alive at once)
-        ran, scratch = plan_costs(chans, rows_n) if rec["train"] else (one, 0)
-        # the bound counts the function's own bytes: its inputs read once,
-        # its outputs (pooled; train: batch means and variances) written once
-        nbytes = 4 * (rec["grouped"].numel()
-                      + sum(w.numel() for w in rec["weights"])
-                      + Bx * S * chans[-1]
-                      + (2 * sum(chans[1:]) if rec["train"] else 0))
-        bnd, by = bound_ms(nbytes, one)
-        rows.append(dict(call=name, mode=mode,
+        ran, scratch = (plan_costs(chans, rows_n, dt) if rec["train"]
+                        else (one, 0))
+        # the bound counts the function's own bytes: its inputs read once
+        # (float32 grouped rows and weights), its outputs (pooled, in the
+        # compute dtype; train: float32 batch means and variances) written
+        # once; operations at the compute dtype's peak
+        nbytes = (4 * (rec["grouped"].numel()
+                       + sum(w.numel() for w in rec["weights"])
+                       + (2 * sum(chans[1:]) if rec["train"] else 0))
+                  + got[0].element_size() * Bx * S * chans[-1])
+        bnd, by = bound_ms(nbytes, one, F32_OPS_PER_S if dt == torch.float32
+                           else BF16_OPS_PER_S)
+        rows.append(dict(call=name, mode=mode, dtype=str(dt),
                          shape=f"B{Bx} S{S} K{K} C{'/'.join(map(str, chans))}",
                          max_abs_err=max(errs.values()), errs=errs,
+                         readings=readings, control=control,
                          chain_flops=one, kernel_flops=ran,
                          chains_run=ran / one, scratch_bytes=scratch,
                          bound_ms=bnd, bound_by=by, args=args))
+    return rows
+
+
+def time_fused_rows(frows, card):
+    """Phases 10, 14 and 15: each recorded fused call's kernels (CUDA events,
+    and the profiler's device time of the call's launches) beside its plain
+    version (the cuBLAS GEMM + elementwise chain that fused_sa=False runs,
+    in the call's compute dtype) and its bound."""
+    import torch
+    from omni_pq_torch.ops.fused_mlp import kernel_mlp_pool, plain_mlp_pool
+    for row in frows:
+        args = row.pop("args")
+        with torch.no_grad():
+            row["ms"] = time_ms(lambda: kernel_mlp_pool(*args), reps=5)
+            row["device_ms"] = device_ms(lambda: kernel_mlp_pool(*args),
+                                         KERNEL_NAMES["fused_mlp"])
+            row["plain_ms"] = time_ms(lambda: plain_mlp_pool(*args), reps=3)
+        check(row["device_ms"] is not None, f"fused_mlp_pool {row['call']} "
+              f"{row['mode']}: the profiler recorded none of its kernels")
+        print(f"[time] fused_mlp_pool   {row['call']} {row['mode']:5s} "
+              f"{row['dtype'].removeprefix('torch.'):8s} "
+              f"{row['shape']:30s} kernel {row['ms']:.3f} ms (device "
+              f"{row['device_ms']:.4f})  plain (cuBLAS chain) "
+              f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}, one chain; the kernels run "
+              f"{row['chains_run']:.4f} chains, scratch "
+              f"{row['scratch_bytes']} bytes)  [{card}]")
+
+
+def bf16_forward_phase(cfg, pc, model, ep, counted, card):
+    """Phase 13: the bfloat16 serving path, ModelConfig(compute_dtype=
+    "bfloat16", fused_sa=True), beside the unfused bfloat16 forward and
+    phase 3's float32 one."""
+    import torch
+    from omni_pq_torch import ops
+    from omni_pq_torch.infer import build_model, eval_forward
+    dev = pc.device
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    model_f = build_model(dataclasses.replace(cfg16, fused_sa=True), dev,
+                          seed=SEED)
+    model_u = build_model(cfg16, dev, seed=SEED)
+    fused_layers = [n for n, m in model_f.named_modules()
+                    if getattr(m, "fused", False)]
+    check(fused_layers == [f"backbone.sa{i}" for i in range(1, 5)],
+          f"bf16 fused SA layers {fused_layers}, expected backbone.sa1-sa4")
+    eval_forward(model_f, pc)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts(counted)
+    ep_f = eval_forward(model_f, pc)
+    torch.cuda.synchronize()
+    launches = fused_launch_counts(counted)
+    peak_f = torch.cuda.max_memory_allocated(dev)
+    print(f"[bf16] launches in one bfloat16 fused forward: {launches}")
+    want = {"fps": 6, "ball_query_group": 5, "fused_mlp_pool": 4}
+    check({k: launches[k] for k in want} == want,
+          f"expected {want} launches, got {launches}")
+    kern = fused_eval_kernels(lambda: eval_forward(model_f, pc))
+    check(kern == {"fused_mlp_bf16_kernel": 4},
+          f"the profile of a bf16 forward saw fused kernels {kern}, "
+          "expected 4 fused_mlp_bf16_kernel launches")
+    ep_u = eval_forward(model_u, pc)
+    torch.cuda.synchronize()
+    check(set(ep_f) == set(ep) == set(ep_u), "bf16 forward: other keys")
+    for k in ("sa1_inds", "sa2_inds", "fp2_inds", "seed_inds",
+              "aggregated_sample_xyz"):
+        check(torch.equal(ep_f[k], ep[k]) and torch.equal(ep_u[k], ep[k]),
+              f"bf16 forward {k}: not bitwise phase 3's (it depends on xyz "
+              "only)")
+    for k, v in ep_f.items():
+        if v.dtype.is_floating_point:
+            check(bool(torch.isfinite(v.float()).all()),
+                  f"bf16 fused {k} not finite")
+    feats = ["sa1_features", "sa2_features", "sa3_features", "sa4_features",
+             "fp2_features"]
+    gaps = {}
+    for k in feats:
+        check(ep_f[k].dtype == torch.bfloat16, f"bf16 {k}: {ep_f[k].dtype}")
+        rel, of_max = bf16_gaps(ep_f[k], ep_u[k])
+        gaps[k] = (rel, of_max)
+        check(rel <= BF16_ROUTE_NORM_REL and of_max
+              <= BF16_ROUTE_ELEMENT_OF_MAX,
+              f"bf16 fused {k}: {rel:.3e} of its norm, {of_max:.3e} of its "
+              f"max from the unfused bf16 forward, outside "
+              f"{BF16_ROUTE_NORM_REL} / {BF16_ROUTE_ELEMENT_OF_MAX}")
+    # the control: the same forward with each fused call the float32 chain,
+    # rounded to bfloat16 only at its output, must fall outside the bound
+    real = ops.fused_mlp_pool
+
+    def float32_chain(grouped, weights, scales, biases, ra_means=(),
+                      ra_vars=(), *, train, eps=1e-5, dtype=None):
+        pooled, means, variances = ops.fused_mlp_pool_plain(
+            grouped, weights, scales, biases, ra_means, ra_vars, train=train,
+            eps=eps, dtype=torch.float32)
+        return pooled.to(dtype), means, variances
+    ops.fused_mlp_pool = float32_chain
+    try:
+        ep_c = eval_forward(model_f, pc)
+    finally:
+        ops.fused_mlp_pool = real
+    control = {k: bf16_gaps(ep_c[k], ep_u[k]) for k in feats}
+    del ep_c
+    check(all(control[k][0] > BF16_ROUTE_NORM_REL for k in feats),
+          f"bf16 forward: with the float32 chain in each fused call the "
+          f"features read {control} against the unfused bf16 forward, within "
+          f"the bound {BF16_ROUTE_NORM_REL}: the check cannot tell them apart")
+    to_f32 = {k: bf16_gaps(ep_u[k].float(), ep[k]) for k in feats}
+    picks = ops.fps(ep_u["vote_xyz"], cfg.num_proposal)
+    moved = int((picks != ops.fps(ep_f["vote_xyz"], cfg.num_proposal)).sum())
+    moved32 = int((ops.fps(ep["vote_xyz"], cfg.num_proposal) != picks).sum())
+    print(f"[bf16] indices and quad queries bitwise phase 3's; sa1-4/fp2 "
+          f"features of the fused bf16 forward against the unfused bf16 one"
+          f" (norm-relative, of the max): "
+          + ", ".join(f"{k[:3]} {a:.2e}/{b:.2e}" for k, (a, b) in gaps.items())
+          + f" (bounds {BF16_ROUTE_NORM_REL}/{BF16_ROUTE_ELEMENT_OF_MAX}); "
+          f"the control (the float32 chain in each fused call) against the "
+          f"unfused bf16 one: "
+          + ", ".join(f"{k[:3]} {a:.2e}/{b:.2e}"
+                      for k, (a, b) in control.items())
+          + f"; the unfused bf16 against phase 3's float32: "
+          + ", ".join(f"{k[:3]} {a:.2e}/{b:.2e}"
+                      for k, (a, b) in to_f32.items())
+          + f"; all {len(ep_f)} keys finite; vote_aggregation FPS picks that"
+          f" moved: {moved} of {picks.numel()} (fused vs unfused bf16), "
+          f"{moved32} (unfused bf16 vs float32)")
+    # ms/batch in turns: float32 (phase 3), bf16 fused, bf16 fused, float32
+    times = {"float32": [], "bf16_fused": []}
+    peaks = {"float32": None, "bf16_fused": peak_f}
+    for route in ("float32", "bf16_fused", "bf16_fused", "float32"):
+        m = model if route == "float32" else model_f
+        times[route].append(wall_ms_per_call(lambda: eval_forward(m, pc),
+                                             reps=5))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eval_forward(model, pc)
+    torch.cuda.synchronize()
+    peaks["float32"] = torch.cuda.max_memory_allocated(dev)
+    unfused_ms = wall_ms_per_call(lambda: eval_forward(model_u, pc), reps=3)
+    print(f"[bf16] forward B={B}: float32 {times['float32']} ms, bf16 fused "
+          f"{times['bf16_fused']} ms per batch = "
+          f"{B / np.mean(times['bf16_fused']) * 1e3:.2f} scenes/s (float32 "
+          f"{B / np.mean(times['float32']) * 1e3:.2f}); bf16 unfused "
+          f"{unfused_ms:.3f} ms; peak memory bf16 fused "
+          f"{peak_f / 2**30:.2f} GiB, float32 {peaks['float32'] / 2**30:.2f}"
+          f" GiB [{card}]")
+    records = []
+    restore = record_fused_calls(ops, records)
+    try:
+        eval_forward(model_f, pc)
+    finally:
+        restore()
+    return dict(launches=launches, profile_fused_kernels=kern,
+                feature_gaps_fused_vs_unfused=gaps,
+                feature_gaps_control_vs_unfused=control,
+                feature_gaps_bf16_vs_f32=to_f32,
+                vote_aggregation_fps_moved=moved,
+                vote_aggregation_fps_moved_vs_f32=moved32,
+                forward_ms=times, unfused_forward_ms=unfused_ms,
+                peak_mem_bytes=peaks), records
+
+
+def fused_eval_kernels(fn) -> dict:
+    """{fused chained-kernel name: launches} of one call of fn, from the
+    profiler (counted over 3 calls, rounded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        m = re.search(r"::(fused_mlp(_bf16)?_kernel)\b", e.key)
+        if m and e.device_type == DeviceType.CUDA:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + e.count
+    return {k: round(v / 3) for k, v in counts.items()}
+
+
+def repair_phase(card):
+    """Phase 16: the float32 eval mode at K = 128 and 200 with sa2's widths,
+    where one centre's chained tile does not fit in shared memory: the pass
+    plan with the running statistics, against the plain version."""
+    import torch
+    from omni_pq_torch import ops
+    from omni_pq_torch.ops.fused_mlp import (eval_chained, kernel_mlp_pool,
+                                            pass_plan, plain_mlp_pool)
+    dev = torch.device("cuda", 0)
+    rows = []
+    for name, (Bx, S, K, C0, widths) in REPAIR_CASES.items():
+        gen = torch.Generator(dev).manual_seed(SEED)
+        rnd = lambda *shape: torch.randn(*shape, generator=gen,  # noqa: E731
+                                         device=dev)
+        chans = [C0, *widths]
+        args = (rnd(Bx, S, K, C0),
+                [rnd(a, b) / a ** 0.5 for a, b in zip(chans[:-1], chans[1:])],
+                [torch.rand(c, generator=gen, device=dev) + 0.5
+                 for c in widths],
+                [0.1 * rnd(c) for c in widths], [0.2 * rnd(c) for c in widths],
+                [torch.rand(c, generator=gen, device=dev) + 0.5
+                 for c in widths])
+        check(not eval_chained(chans, K), f"repair {name}: the chained "
+              "kernel would take it")
+        before = ops.fused_mlp_pool.launches
+        with torch.no_grad():
+            got = ops.fused_mlp_pool(*args, train=False)[0]
+            torch.cuda.synchronize()
+            want = plain_mlp_pool(*args, False, 1e-5)[0]
+        check(ops.fused_mlp_pool.launches == before + 1,
+              f"repair {name}: the kernels were not launched")
+        worst, ok = max_violation(got, want, **FUSED_TOL)
+        check(ok, f"repair {name}: |diff| {worst} outside {FUSED_TOL}")
+        ms = time_ms(lambda: kernel_mlp_pool(*args, False, 1e-5), reps=3)
+        dms = device_ms(lambda: kernel_mlp_pool(*args, False, 1e-5),
+                        KERNEL_NAMES["fused_mlp"], reps=3)
+        rows.append(dict(call=name, shape=f"B{Bx} S{S} K{K} "
+                         f"C{'/'.join(map(str, chans))}", max_abs_err=worst,
+                         passes=len(pass_plan(chans, train=False)), ms=ms,
+                         device_ms=dms))
+        print(f"[repair] eval K={K} {rows[-1]['shape']}: pass plan "
+              f"({rows[-1]['passes']} passes + pool) within {FUSED_TOL} of the"
+              f" plain version (largest |diff| {worst:.3e}); {ms:.3f} ms "
+              f"(device {dms})  [{card}]")
     return rows
 
 
@@ -778,12 +1136,17 @@ def feats_phase(cfg, ep, card):
                    backward_gap_of_norm=bwd_gap,
                    ms=time_ms(lambda: ops.ball_query_group_feats(
                        r, k, x, ctr, f), reps=10),
+                   device_ms=device_ms(lambda: ops.ball_query_group_feats(
+                       r, k, x, ctr, f), KERNEL_NAMES["ball_query"]),
                    plain_ms=time_ms(lambda: ops.ball_query_group_feats_plain(
                        r, k, x, ctr, f), reps=2),
                    composition_ms=time_ms(composition, reps=10))
         rows.append(row)
+        check(row["device_ms"] is not None, f"ball_query_group_feats {name}: "
+              "the profiler recorded none of its kernels")
         print(f"[feats] {name:16s} {row['shape']:32s} kernel "
-              f"{row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  "
+              f"{row['ms']:.4f} ms (device {row['device_ms']:.4f})  plain "
+              f"{row['plain_ms']:.3f} ms  "
               f"ball_query_group + group_points {row['composition_ms']:.4f} "
               f"ms  bound {bnd:.4f} ms ({by})  [{card}]")
     print(f"[feats] ball_query_group_feats equal to its plain version "
@@ -981,6 +1344,124 @@ def semi_phase(cfg, dev, card, sup_stat_names):
                 routes={k: {kk: v[kk] for kk in (
                     "stats", "launches", "peak", "ema_rule_gap",
                     "teacher_bn_moved")} for k, v in routes.items()})
+
+
+def bf16_semi_kernel_rows(records, card):
+    """Phase 15: the bf16 fused step's 8 calls (student, then the bf16
+    teacher; B=6) against their plain bfloat16 version, and their times."""
+    check(len(records) == 8, f"recorded {len(records)} fused calls in the "
+                             "bf16 fused semi step, expected 8")
+    frows = fused_kernel_rows(
+        records, "train", [f"{who} sa{i}" for who in ("student", "teacher")
+                           for i in range(1, 5)])
+    print(f"[bf16 semi] the fused step's 8 train-mode calls (B="
+          f"{2 * TRAIN_B}) within {BF16_NORM_REL} of the norm and "
+          f"{BF16_ELEMENT_OF_MAX} of the largest value of their plain bf16 "
+          f"version (stats within their bounds); norm-relative gaps "
+          + ", ".join(f"{r['call']} {r['readings']['pooled_norm_rel']:.2e} "
+                      f"(float32 chain {r['control']['pooled_norm_rel']:.2e})"
+                      for r in frows))
+    time_fused_rows(frows, card)
+    return frows
+
+
+def bf16_semi_phase(cfg, dev, card, sup_stat_names):
+    """Phase 15: the CLIs' default training configuration, the
+    semi-supervised step (TrainFlags(teacher_bf16=True): EMA teacher and
+    gamma mixture) with a bfloat16 student and a bfloat16 teacher, at full
+    width on 3 labeled + 3 weak scenes, both routes from the same weights,
+    2 steps each."""
+    import torch
+    from omni_pq_torch import ops
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.data import make_batch
+    from omni_pq_torch.infer import build_model
+    from omni_pq_torch.train import (OptimizerConfig, TrainFlags, TrainState,
+                                     batch_to_tensors, make_train_step)
+    labeled, weak = (batch_to_tensors(make_batch(
+        np.random.default_rng(SEED + i), TRAIN_B, cfg.num_points), dev)
+        for i in (0, 1))
+    counted = {"fps": ops.fps, "ball_query_group": ops.ball_query_group,
+               "fused_mlp_pool": ops.fused_mlp_pool}
+    flags = TrainFlags(teacher_bf16=True)
+    want_names = set(sup_stat_names) | SEMI_STATS
+    routes, records, frows = {}, [], []
+    for route in ("unfused", "fused"):
+        model = build_model(dataclasses.replace(
+            cfg, compute_dtype="bfloat16", fused_sa=route == "fused"), dev,
+            seed=SEED)
+        state = TrainState(model, OptimizerConfig(), ema=True)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        step = make_train_step(model, model.cfg, SCANNET_MEAN_SIZES, flags)
+
+        def run(step=step, state=state, gen=gen):
+            return step(state, labeled, weak, generator=gen,
+                        consistency_weight=CONSISTENCY_WEIGHT)
+        stats, peak = [], 0
+        for i in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            if i == 0:
+                reset_launch_counts(counted)
+                restore = (record_fused_calls(ops, records)
+                           if route == "fused" else lambda: None)
+            try:
+                st = run()
+                torch.cuda.synchronize()
+            finally:
+                if i == 0:
+                    restore()
+            if i == 0:
+                launches = fused_launch_counts(counted)
+                if route == "fused":  # before step 2, which reads the peak
+                    frows = bf16_semi_kernel_rows(records, card)
+                    del records
+            else:
+                peak = torch.cuda.max_memory_allocated(dev)
+            stats.append({k: float(v) for k, v in st.items()})
+            check(all(np.isfinite(v) for v in stats[-1].values()),
+                  f"bf16 semi {route} step {i + 1}: non-finite stats")
+        check(set(stats[0]) == want_names, f"bf16 semi {route}: stats "
+              f"{sorted(set(stats[0]) ^ want_names)} differ from the JAX "
+              "step's set")
+        want = {"fps": 12, "ball_query_group": 10,
+                "fused_mlp_pool": 8 if route == "fused" else 0}
+        check(launches == want, f"bf16 semi {route} step launches "
+                                f"{launches}, expected {want}")
+        routes[route] = dict(run=run, stats=stats, launches=launches,
+                             peak=peak)
+        print(f"[bf16 semi] {route}: step launches {launches}; total_loss "
+              f"{[round(x['total_loss'], 4) for x in stats]} grad_norm "
+              f"{[round(x['grad_norm'], 3) for x in stats]} "
+              f"weighted_consistency_loss "
+              f"{[round(x['weighted_consistency_loss'], 5) for x in stats]}"
+              f"; all stats finite")
+    times = {"unfused": [], "fused": []}
+    for route in ("unfused", "fused", "fused", "unfused"):
+        times[route].append(wall_ms_per_call(routes[route]["run"], reps=2))
+    lines = [card]
+    top = {}
+    for route, r in routes.items():
+        expect = {"fps_kernel": 12, "ball_query_kernel": 10,
+                  **fused_train_launches([3] * 8 if route == "fused" else [],
+                                         bf16=True)}
+        top[route], table = profile_step(r["run"], expect,
+                                         float(np.mean(times[route])))
+        lines.append(f"--- bfloat16 semi-supervised {route} step\n" + table)
+        print(f"[bf16 semi] {route} profile of one step: "
+              + top[route]["line"])
+        print(f"[bf16 semi] {route}: {np.mean(times[route]):.3f} ms/step "
+              f"({times[route]}), peak memory {r['peak'] / 2**30:.2f} GiB "
+              f"[{card}]")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_bf16_semi_profile.txt"),
+              "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return dict(batch=f"{TRAIN_B}+{TRAIN_B}", flags="TrainFlags("
+                "teacher_bf16=True), compute_dtype bfloat16", step_ms=times,
+                profile=top, routes={k: {kk: v[kk] for kk in (
+                    "stats", "launches", "peak")} for k, v in routes.items()}
+                ), frows
 
 
 def main() -> int:
@@ -1246,23 +1727,7 @@ def main() -> int:
           f"{max(r['max_abs_err'] for r in frows):.3e}")
 
     # -- 10. times of the fused kernel and its plain version
-    from omni_pq_torch.ops.fused_mlp import kernel_mlp_pool, plain_mlp_pool
-    for row in frows:
-        args = row.pop("args")
-        with torch.no_grad():
-            row["ms"] = time_ms(lambda: kernel_mlp_pool(*args), reps=5)
-            row["device_ms"] = device_ms(lambda: kernel_mlp_pool(*args),
-                                         KERNEL_NAMES["fused_mlp"])
-            row["plain_ms"] = time_ms(lambda: plain_mlp_pool(*args), reps=3)
-        check(row["device_ms"] is not None, f"fused_mlp_pool {row['call']} "
-              f"{row['mode']}: the profiler recorded none of its kernels")
-        print(f"[time] fused_mlp_pool   {row['call']} {row['mode']:5s} "
-              f"{row['shape']:30s} kernel {row['ms']:.3f} ms (device "
-              f"{row['device_ms']:.4f})  plain (cuBLAS chain) "
-              f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.3f} ms "
-              f"({row['bound_by']}, one chain; the kernels run "
-              f"{row['chains_run']:.4f} chains, scratch "
-              f"{row['scratch_bytes']} bytes)  [{card}]")
+    time_fused_rows(frows, card)
     rows["fused_mlp_pool"] = frows
 
     # -- 11. ball_query_group_feats at the SA and vote-aggregation shapes
@@ -1274,6 +1739,35 @@ def main() -> int:
         cfg, dev, card, report["train"]["routes"]["unfused"]["stats"][0])
     feats_launches = report["semi"]["routes"]["unfused"]["launches"][
         "ball_query_group_feats"]
+
+    # -- 13. the bfloat16 serving path
+    report["bf16_forward"], bf16_eval_records = bf16_forward_phase(
+        cfg, pc, model, ep, counted, card)
+    bf16_eval_launches = report["bf16_forward"]["launches"]["fused_mlp_pool"]
+
+    # -- 14. the bfloat16 eval kernel against its plain version
+    check(len(bf16_eval_records) == 4, f"recorded {len(bf16_eval_records)} "
+          "eval bf16 fused calls, expected 4")
+    brows = fused_kernel_rows(bf16_eval_records, "eval")
+    del bf16_eval_records
+    print(f"[check] bfloat16 fused_mlp_pool eval within {BF16_NORM_REL} of "
+          f"the norm and {BF16_ELEMENT_OF_MAX} of the largest value of its "
+          f"plain bfloat16 version at 4 shapes (B={B}); norm-relative gaps "
+          + ", ".join(f"{r['call']} {r['readings']['pooled_norm_rel']:.2e} "
+                      f"(float32 chain {r['control']['pooled_norm_rel']:.2e})"
+                      for r in brows))
+    time_fused_rows(brows, card)
+
+    # -- 15. the CLIs' default training configuration: bf16 student and
+    # teacher; its fused calls against their plain version, and their times
+    report["bf16_semi"], bf16_train_rows = bf16_semi_phase(
+        cfg, dev, card, report["train"]["routes"]["unfused"]["stats"][0])
+    rows["fused_mlp_pool_bf16"] = brows + bf16_train_rows
+    bf16_train_launches = report["bf16_semi"]["routes"]["fused"]["launches"][
+        "fused_mlp_pool"]
+
+    # -- 16. the fused eval mode at K = 128 and 200 (sa2's widths)
+    report["repair"] = repair_phase(card)
     report["kernel_rows"] = rows
     # a time below its bound means a miscounted bound or a broken timer
     for kname, krows in rows.items():
@@ -1326,6 +1820,28 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in mrows),
             "bound_by": max(mrows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": None, "matched": True})
+    # the bfloat16 fused kernels, one entry a mode: eval's main path is
+    # phase 13's bf16 fused forward (one chained-kernel call a fused SA
+    # layer; times and bounds phase 14's, B=16), train's phase 15's bf16
+    # fused semi-supervised step (student and teacher: 8 pass-plan calls at
+    # B=6, times and bounds those calls'), the bound at the bf16
+    # tensor-core peak
+    for mode, launched in (("eval", bf16_eval_launches),
+                           ("train", bf16_train_launches)):
+        mrows = [r for r in rows["fused_mlp_pool_bf16"] if r["mode"] == mode]
+        summary.append({
+            "name": "fused_mlp_pool_bf16" + ("" if mode == "eval"
+                                             else "_train"),
+            "route": "cuda", "source": "omni_pq_torch/csrc/fused_mlp_bf16.cu",
+            "replaces": "omni_pq_tpu/ops/fused_mlp.py:116",
+            "launches": launched,
+            "max_abs_err": max(r["max_abs_err"] for r in mrows),
+            "ms": sum(r["ms"] for r in mrows),
+            "device_ms": sum(r["device_ms"] for r in mrows),
+            "plain_ms": sum(r["plain_ms"] for r in mrows),
+            "bound_ms": sum(r["bound_ms"] for r in mrows),
+            "bound_by": max(mrows, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": None, "matched": True})
     # on no model path: its launches are the semi-supervised step's (0);
     # times and bounds are phase 11's four shapes
     frows11 = rows["ball_query_group_feats"]
@@ -1335,6 +1851,7 @@ def main() -> int:
         "replaces": "omni_pq_tpu/ops/ball_query.py:499",
         "launches": feats_launches, "max_abs_err": 0,
         "ms": sum(r["ms"] for r in frows11),
+        "device_ms": sum(r["device_ms"] for r in frows11),
         "plain_ms": sum(r["plain_ms"] for r in frows11),
         "bound_ms": sum(r["bound_ms"] for r in frows11),
         "bound_by": max(frows11, key=lambda r: r["bound_ms"])["bound_by"],

@@ -3,7 +3,9 @@ object boxes as JSON (the port of `omni_pq_tpu/cli/infer.py`).
 
 The checkpoint is a `.pth` holding a reference-layout state_dict, either
 bare or under "model" as the reference saves it (a DDP 'module.' prefix is
-stripped). Runs on the card unless `--device cpu` is given.
+stripped). Runs on the card unless `--device cpu` is given. The model
+computes in bfloat16, as the JAX infer CLI always does (its parameters stay
+float32); `--bf16` is accepted and changes nothing.
 
 Run:  python -m omni_pq_torch.cli.infer --checkpoint_path best.pth \
           --input scene.npy --output out.json
@@ -34,6 +36,9 @@ def main(argv=None):
     parser.add_argument("--nms_iou_quad", type=float, default=0.25)
     parser.add_argument("--smoke", action="store_true",
                         help="the tiny --smoke model of the train CLI")
+    parser.add_argument("--bf16", action="store_true",
+                        help="accepted for the JAX CLI's scripts: the model "
+                             "computes in bfloat16 either way")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
@@ -46,7 +51,7 @@ def main(argv=None):
     from ..infer import eval_forward, load_model, resolve_device
 
     device = resolve_device(args.device)
-    cfg = ModelConfig(num_points=args.num_point,
+    cfg = ModelConfig(num_points=args.num_point, compute_dtype="bfloat16",
                       **(SMOKE_MODEL if args.smoke else {}))
     payload = torch.load(args.checkpoint_path, map_location="cpu",
                          weights_only=True)
@@ -60,7 +65,8 @@ def main(argv=None):
     pts = pts[choice]
     pts = pts[spatial_sort(pts)]
     ep = eval_forward(model, pts[None])
-    ep = {k: v.cpu().numpy() for k, v in ep.items()}
+    ep = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+          for k, v in ep.items()}
 
     config_dict = {"nms_iou_quad": args.nms_iou_quad, "conf_thresh": 0.0,
                    "use_old_type_nms": False, "dataset_config": DatasetConfig(),

@@ -14,7 +14,11 @@ consistency loss is weighted by the sigmoid ramp of --consistency_weight
 over --consistency_rampup epochs. Every step's scalars go to
 <log_dir>/metrics.jsonl as {"step", "time", "train/<stat>": value}.
 Checkpoints, the in-loop evaluation and the ScanNet / ARKitScenes loaders
-are not ported yet. Runs on the card unless --device cpu is given.
+are not ported yet. Runs on the card unless --device cpu is given. The
+model computes in bfloat16 by default, as the JAX CLI's does (--f32 opts
+out, --bf16 is the default; parameters, BatchNorm statistics and losses
+stay float32), and --teacher_bf16 runs the EMA teacher's forward in
+bfloat16.
 
 Run:  python -m omni_pq_torch.cli.train --synthetic_data --pc_loss \
           --ema --gamma_mixture
@@ -68,6 +72,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--far_threshold", type=float, default=0.6,
                         help="GT assignment FAR radius in meters "
                              "(reference fixed 0.6, loss_helper_pq.py:18)")
+    # bfloat16 compute by default, --f32 to opt out, --teacher_bf16 (the
+    # JAX CLI's cli/args.py:106-126)
+    parser.add_argument("--bf16", action="store_true", default=True,
+                        help="bfloat16 compute for the Dense path (params "
+                             "and losses stay float32; the default)")
+    parser.add_argument("--f32", dest="bf16", action="store_false",
+                        help="full float32 compute (opt out of the "
+                             "bfloat16 default)")
+    parser.add_argument("--teacher_bf16", action="store_true",
+                        help="run the EMA teacher's forward in bfloat16 "
+                             "(soft consistency targets only)")
     parser.add_argument("--rng_seed", type=int, default=0)
     parser.add_argument("--log_dir",
                         default=f"log/{time.strftime('%Y%m%d-%H%M%S')}")
@@ -94,6 +109,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = ModelConfig(num_points=args.num_point,
+                      compute_dtype="bfloat16" if args.bf16 else "float32",
                       **(SMOKE_MODEL if args.smoke else {}))
     loader = Loader(SyntheticDataset(32, args.num_point, seed=args.rng_seed),
                     args.batch_size, seed=args.rng_seed)
@@ -108,7 +124,7 @@ def main(argv=None):
     flags = TrainFlags(
         ema=args.ema, gamma_mixture=args.gamma_mixture, arkit=args.arkit,
         pc_loss=args.pc_loss, use_fitted_mixture=args.use_fitted_mixture,
-        ema_decay=args.ema_decay,
+        teacher_bf16=args.teacher_bf16, ema_decay=args.ema_decay,
         lambda_metric_normal=args.lambda_metric_normal,
         lambda_metric_vertical=args.lambda_metric_vertical,
         lambda_metric_size=args.lambda_metric_size,

@@ -3,9 +3,13 @@
 The port's own copy of `omni_pq_tpu/config.py`: the ScanNet dataset
 statistics (18 classes, 1 heading bin, 18 size clusters, mean box sizes) and
 the PQ-Transformer architecture. Field names and defaults are the JAX
-package's, so a config converts field by field. The port computes in
-float32 only: the JAX package's `compute_dtype` (bfloat16) and `remat_sa`
-knobs are left out.
+package's, so a config converts field by field. `compute_dtype` is the JAX
+package's mixed-precision switch: "bfloat16" runs the Dense chains, the
+attention projections and the fused SA-MLP kernel in bfloat16 while the
+parameters, BatchNorm statistics, softmax, LayerNorms and losses stay
+float32 (the library default stays "float32"; the CLIs default to
+bfloat16 as the JAX CLIs do). The JAX package's `remat_sa` knob is left
+out.
 """
 from __future__ import annotations
 
@@ -76,6 +80,11 @@ class ModelConfig:
     backbone_radii: tuple = (0.2, 0.4, 0.8, 1.2)
     vote_aggregation_nsample: int = 16
     num_points: int = 40000
+    # mixed precision: "float32" or "bfloat16" compute for the Dense path
+    # (parameters stay float32; BatchNorm statistics, softmax, LayerNorm and
+    # the losses stay float32). Same meaning and default as the JAX
+    # package's field.
+    compute_dtype: str = "float32"
     # per-vector normal normalisation in QuadPredictHead; the reference
     # divides by the global tensor norm (pq_transformer.py:112-113). Same
     # default and meaning as the JAX package's flag.

@@ -66,11 +66,19 @@
 // then the 16 row groups in order) and takes the extremes over 4-row
 // groups, then over a centre's groups, through shared memory.
 //
+// Eval mode where one tile's chain does not fit in shared memory (large K at
+// wide layers, e.g. K >= 120 at sa2's widths): the wrapper runs the pass
+// plan instead, with the running statistics as each pass's BN and no stats
+// launches (psum null): L passes (no pass 0 where a_1 is recomputed) and the
+// pool launch. The bfloat16 compute mode's kernels are in
+// csrc/fused_mlp_bf16.cu; the pool launch here serves it too (out_bf16).
+//
 // Tensor cores are left out on purpose: the function is float32 with TF32
 // off, as is the plain version it is held against; TF32 would lose that
 // accuracy, and 3xTF32, which keeps it, changes the sums' rounding and what
 // the bound counts on top of the schedule. Later work, for both modes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -274,7 +282,8 @@ struct PassArgs {
   float* a_out;       // (rows, cout) or null
   float* ext_max;     // (rows / seg, cout) or null: the last pass
   float* ext_min;
-  float* psum;        // (row tiles, 2, cout): column sums of a and a*a
+  float* psum;        // (row tiles, 2, cout): column sums of a and a*a, or
+                      // null (eval: no statistics)
   long long rows;
   int c0, cin, cout, tile_rows, seg;
 };
@@ -524,7 +533,7 @@ mlp_pass_kernel(const PassArgs p) {
   __syncthreads();
   {
     const int c = t & (kBN - 1), which = t >> 7;  // a (t < 128) or a*a
-    if (n0 + c < cout) {
+    if (p.psum && n0 + c < cout) {
       float s = 0.f;
       for (int g = 0; g < 16; ++g)
         s = __fadd_rn(s, red[(16 * which + g) * kBN + c]);
@@ -583,14 +592,16 @@ mlp_stats_kernel(const float* __restrict__ psum, long long tiles, int C,
   }
 }
 
-// pooled[centre, c] from the extremes of its nseg segments
+// pooled[centre, c] from the extremes of its nseg segments; kBf16: the
+// bfloat16 mode's BN step (extremes of af, output in bfloat16)
+template <bool kBf16>
 __global__ void mlp_pool_kernel(const float* __restrict__ ext_max,
                                 const float* __restrict__ ext_min,
                                 long long centres, int nseg, int C,
                                 const float* __restrict__ mu,
                                 const float* __restrict__ mul,
                                 const float* __restrict__ bias,
-                                float* __restrict__ out) {
+                                void* __restrict__ out) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (e >= centres * C) return;
@@ -602,7 +613,12 @@ __global__ void mlp_pool_kernel(const float* __restrict__ ext_max,
     mx = fmaxf(mx, ext_max[base + static_cast<long long>(s) * C]);
     mn = fminf(mn, ext_min[base + static_cast<long long>(s) * C]);
   }
-  out[e] = pool_from_extremes(mx, mn, mu[c], mul[c], bias[c]);
+  if (kBf16)
+    static_cast<__nv_bfloat16*>(out)[e] = __float2bfloat16_rn(
+        mlp_logic::pool_from_extremes_bf16(mx, mn, mu[c], mul[c], bias[c]));
+  else
+    static_cast<float*>(out)[e] =
+        pool_from_extremes(mx, mn, mu[c], mul[c], bias[c]);
 }
 
 int round4(int c) { return (c + 3) / 4 * 4; }
@@ -708,7 +724,8 @@ extern "C" int mlp_pass_tile(int K, int* out2) {
 //     cin): a_1 recomputed from x.
 // Writes the product to a_out (if not null), the max and min over each
 // segment's rows to ext_max / ext_min (if not null), and each row tile's
-// column sums of the product and its square to psum (tiles, 2, cout).
+// column sums of the product and its square to psum (tiles, 2, cout; if
+// not null: eval passes keep no statistics).
 extern "C" int mlp_pass_launch(const float* a, const float* w0, int c0,
                                const float* mu, const float* mul,
                                const float* bias, const float* w, int cin,
@@ -733,7 +750,7 @@ extern "C" int mlp_pass_launch(const float* a, const float* w0, int c0,
   if (K < 8 || K % 8) return cudaErrorInvalidValue;
   pass_tile(K, &p.tile_rows, &p.seg);
   if (rows < 1 ||
-      rows % K || cin < 1 || cout < 4 || cout % 4 || !a || !w || !psum ||
+      rows % K || cin < 1 || cout < 4 || cout % 4 || !a || !w ||
       (!ext_max) != (!ext_min) || (mu && (!mul || !bias || cin % 4)) ||
       (w0 && (!mu || c0 < 1 || c0 > kMaxRecomputeC0)) ||
       reinterpret_cast<uintptr_t>(w) % 16 ||
@@ -762,20 +779,25 @@ extern "C" int mlp_stats_launch(const float* psum, long long tiles, int C,
 }
 
 // The pooled output (centres, C) from the last pass's extremes (centres *
-// nseg, C) and the last layer's BN.
+// nseg, C) and the last layer's BN: float32, or bfloat16 with the bfloat16
+// mode's BN step when out_bf16 is set.
 extern "C" int mlp_pool_launch(const float* ext_max, const float* ext_min,
                                long long centres, int nseg, int C,
                                const float* mu, const float* mul,
-                               const float* bias, float* out,
+                               const float* bias, void* out, int out_bf16,
                                cudaStream_t stream) {
   if (centres < 1 || nseg < 1 || C < 1 || !ext_max || !ext_min || !mu ||
       !mul || !bias || !out)
     return cudaErrorInvalidValue;
   const long long n = centres * C;
   if ((n + 255) / 256 > 0x7fffffffLL) return cudaErrorInvalidValue;
-  mlp_pool_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                    stream>>>(ext_max, ext_min, centres, nseg, C, mu, mul,
-                              bias, out);
+  const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+  if (out_bf16)
+    mlp_pool_kernel<true><<<blocks, 256, 0, stream>>>(
+        ext_max, ext_min, centres, nseg, C, mu, mul, bias, out);
+  else
+    mlp_pool_kernel<false><<<blocks, 256, 0, stream>>>(
+        ext_max, ext_min, centres, nseg, C, mu, mul, bias, out);
   return cudaGetLastError();
 }
 

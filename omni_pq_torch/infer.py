@@ -5,7 +5,8 @@ score the decoded quads with the corner-F1.
 BatchNorm, no dropout); `evaluate_quad_f1` is the decode + F1 loop of its
 `cli/train.py::evaluate` for one batch. Entry points take `device` and run on
 "cuda" unless the caller passes "cpu"; asking for "cuda" without a card
-raises.
+raises. The model computes at its config's `compute_dtype` (parameters
+float32 either way).
 """
 from __future__ import annotations
 
@@ -59,8 +60,9 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
 
 def build_model(cfg: ModelConfig = ModelConfig(), device="cuda",
                 seed: int = 0) -> PQTransformer:
-    """An eval-mode PQTransformer with random weights made on the CPU from
-    `seed` (the same weights on every device), moved to `device`."""
+    """An eval-mode PQTransformer at `cfg` (its compute_dtype included) with
+    random float32 weights made on the CPU from `seed` (the same weights on
+    every device and in either compute dtype), moved to `device`."""
     device = resolve_device(device)
     model = PQTransformer(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
@@ -69,8 +71,9 @@ def build_model(cfg: ModelConfig = ModelConfig(), device="cuda",
 
 def load_model(state_dict: Mapping[str, torch.Tensor],
                cfg: ModelConfig = ModelConfig(), device="cuda") -> PQTransformer:
-    """An eval-mode PQTransformer holding a reference-layout state_dict
-    (a DDP 'module.' prefix is stripped), on `device`."""
+    """An eval-mode PQTransformer at `cfg` (its compute_dtype included)
+    holding a reference-layout float32 state_dict (a DDP 'module.' prefix is
+    stripped), on `device`."""
     device = resolve_device(device)
     if any(k.startswith("module.") for k in state_dict):
         state_dict = {k.removeprefix("module."): v
@@ -82,7 +85,7 @@ def load_model(state_dict: Mapping[str, torch.Tensor],
 
 def eval_forward(model: PQTransformer, point_clouds) -> Dict[str, torch.Tensor]:
     """The eval-mode forward on (B, N, 3+C) clouds (a tensor or an array),
-    on the model's device."""
+    on the model's device, at the model's compute dtype."""
     device = next(model.parameters()).device
     pc = torch.as_tensor(point_clouds, dtype=torch.float32, device=device)
     with torch.inference_mode():
@@ -96,7 +99,8 @@ def evaluate_quad_f1(end_points: Mapping, labels: Mapping) -> Dict:
 
     Returns {"f1", "pred_mask" (B, K), "pred_corners" (per scene, a list of
     (4, 3) corner arrays)}."""
-    ep = {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else v)
+    ep = {k: ((v.detach().float() if v.is_floating_point() else v)
+              .cpu().numpy() if torch.is_tensor(v) else v)
           for k, v in end_points.items()}
     merged = {**ep, **labels}
     pred_cls, pred_mask, pred_corners = parse_quad_predictions(

@@ -9,7 +9,8 @@ Channel plan with width=2, depth=2 (the reference default):
 Seeds: 1024 x 288-d at the sa2 coordinates. seed_inds keeps the reference's
 approximation sa1_inds[:, :1024] (backbone_module.py:135-137).
 `fused=True` routes the SA layers whose widths pass the gate through the
-fused SA-MLP kernel (`ModelConfig.fused_sa`).
+fused SA-MLP kernel (`ModelConfig.fused_sa`); `dtype` is the SA and FP
+layers' compute dtype (`ModelConfig.compute_dtype`).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ class Pointnet2Backbone(nn.Module):
     def __init__(self, input_feature_dim: int = 0, width: int = 2,
                  depth: int = 2, out_dim: int = 288,
                  npoints=(2048, 1024, 512, 256), nsamples=(64, 32, 16, 16),
-                 radii=(0.2, 0.4, 0.8, 1.2), fused: bool = False):
+                 radii=(0.2, 0.4, 0.8, 1.2), fused: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         w, d = width, depth
         outs = [128 * w, 256 * w, 256 * w, 256 * w]
@@ -32,10 +34,10 @@ class Pointnet2Backbone(nn.Module):
         for i in range(4):
             self.add_module(f"sa{i + 1}", SAModuleVotes(
                 npoints[i], radii[i], nsamples[i], cin, mlps[i] + [outs[i]],
-                normalize_xyz=True, fused=fused))
+                normalize_xyz=True, fused=fused, dtype=dtype))
             cin = outs[i]
-        self.fp1 = FPModule([outs[3] + outs[2], 256 * w, 256 * w])
-        self.fp2 = FPModule([256 * w + outs[1], 256 * w, out_dim])
+        self.fp1 = FPModule([outs[3] + outs[2], 256 * w, 256 * w], dtype)
+        self.fp2 = FPModule([256 * w + outs[1], 256 * w, out_dim], dtype)
 
     def forward(self, pointcloud: torch.Tensor) -> dict:
         """pointcloud (B, N, 3+input_feature_dim) -> dict of end points."""

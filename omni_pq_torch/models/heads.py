@@ -1,6 +1,9 @@
 """Prediction heads for object boxes and layout quads (the port of
 `omni_pq_tpu/models/heads.py`). Each head is two Conv+BN+ReLU layers followed
-by parallel 1x1-conv heads; predicted centres are offsets from `base_xyz`."""
+by parallel 1x1-conv heads; predicted centres are offsets from `base_xyz`.
+Under a bfloat16 compute dtype the trunk's convolutions run in bfloat16 and
+its BatchNorms in float32; the output heads have no compute dtype and run in
+float32, as in the JAX package."""
 from __future__ import annotations
 
 import math
@@ -13,11 +16,11 @@ from .pointnet2 import BatchNorm, Conv
 
 
 class _Trunk(nn.Module):
-    def __init__(self, hidden_dim: int):
+    def __init__(self, hidden_dim: int, dtype: torch.dtype):
         super().__init__()
-        self.conv1 = Conv(hidden_dim, hidden_dim)
+        self.conv1 = Conv(hidden_dim, hidden_dim, dtype=dtype)
         self.bn1 = BatchNorm(hidden_dim)
-        self.conv2 = Conv(hidden_dim, hidden_dim)
+        self.conv2 = Conv(hidden_dim, hidden_dim, dtype=dtype)
         self.bn2 = BatchNorm(hidden_dim)
 
     def trunk(self, net):
@@ -30,8 +33,9 @@ class PredictHead(_Trunk):
     (clusters + residuals), semantic class."""
 
     def __init__(self, hidden_dim: int, num_heading_bin: int,
-                 num_size_cluster: int, num_class: int):
-        super().__init__(hidden_dim)
+                 num_size_cluster: int, num_class: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(hidden_dim, dtype)
         self.num_heading_bin = num_heading_bin
         self.num_size_cluster = num_size_cluster
         self.objectness_scores_head = Conv(hidden_dim, 2)
@@ -81,8 +85,9 @@ class QuadPredictHead(_Trunk):
     per_vector_norm=True normalises each predicted normal; False divides by
     the global tensor norm like the reference (pq_transformer.py:112-113)."""
 
-    def __init__(self, hidden_dim: int, per_vector_norm: bool = True):
-        super().__init__(hidden_dim)
+    def __init__(self, hidden_dim: int, per_vector_norm: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(hidden_dim, dtype)
         self.per_vector_norm = per_vector_norm
         self.quad_scores_head = Conv(hidden_dim, 2)
         self.center_head = Conv(hidden_dim, 3)

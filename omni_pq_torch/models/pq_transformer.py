@@ -10,6 +10,11 @@ As in the JAX package, the per-layer predicted centres that become the next
 layer's query positions carry no gradient (pq_transformer.py:263-264 of the
 reference). `model.train()` switches BatchNorm to batch statistics and the
 decoder's dropout on; the masks come from the generator passed to forward.
+`cfg.compute_dtype` sets every module's compute dtype as the JAX package
+threads it; the decoder's query and key projections have none and compute
+in float32, so each `end_points` key has the dtype JAX gives it (the SA,
+FP and seed features and the cluster features in bfloat16 under bfloat16,
+everything else float32, indices int32).
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from .. import ops
 from ..config import ModelConfig
 from .backbone import Pointnet2Backbone
 from .heads import PredictHead, QuadPredictHead
-from .pointnet2 import Conv, SAModuleVotes
+from .pointnet2 import Conv, SAModuleVotes, torch_dtype
 from .transformer import (PositionEmbeddingLearned, TransformerDecoderLayer,
                           VotingModule)
 
@@ -37,20 +42,22 @@ class PQTransformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         hd = cfg.hidden_dim
+        dt = torch_dtype(cfg.compute_dtype)
         self.backbone = Pointnet2Backbone(
             input_feature_dim=cfg.input_feature_dim, width=cfg.backbone_width,
             depth=cfg.backbone_depth, out_dim=hd,
             npoints=cfg.backbone_npoints, nsamples=cfg.backbone_nsamples,
-            radii=cfg.backbone_radii, fused=cfg.fused_sa)
-        self.vote = VotingModule(hd)
+            radii=cfg.backbone_radii, fused=cfg.fused_sa, dtype=dt)
+        self.vote = VotingModule(hd, dt)
         self.vote_aggregation = SAModuleVotes(
             cfg.num_proposal, 0.3, cfg.vote_aggregation_nsample, hd,
-            [hd, hd, hd], normalize_xyz=True, fused=cfg.fused_sa)
+            [hd, hd, hd], normalize_xyz=True, fused=cfg.fused_sa, dtype=dt)
         obj_head = dict(hidden_dim=hd, num_heading_bin=cfg.num_heading_bin,
                         num_size_cluster=cfg.num_size_cluster,
-                        num_class=cfg.num_class)
+                        num_class=cfg.num_class, dtype=dt)
         quad_head = dict(hidden_dim=hd,
-                         per_vector_norm=cfg.quad_normal_per_vector_norm)
+                         per_vector_norm=cfg.quad_normal_per_vector_norm,
+                         dtype=dt)
         self.proposal = PredictHead(**obj_head)
         self.quad_proposal = QuadPredictHead(**quad_head)
         self.decoder_query_proj = Conv(hd, hd)
@@ -65,7 +72,7 @@ class PQTransformer(nn.Module):
             TransformerDecoderLayer(hd, cfg.nhead, cfg.dim_feedforward,
                                     self.decoder_self_posembeds[i],
                                     self.decoder_cross_posembeds[i],
-                                    cfg.dropout)
+                                    cfg.dropout, dt)
             for i in range(L))
         self.prediction_heads = nn.ModuleList(
             PredictHead(**obj_head) for _ in range(L))

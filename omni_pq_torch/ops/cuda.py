@@ -46,6 +46,10 @@ _SIGNATURES = {
                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_void_p]),
+    "fused_mlp_bf16": ("fused_mlp_bf16_launch",
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]),
 }
 # the other launchers of a library, {C function: argtypes}; each returns
 # the launch's cudaError_t too
@@ -63,7 +67,15 @@ _MORE_SIGNATURES = {
         "mlp_pool_launch": [ctypes.c_void_p, ctypes.c_void_p,
                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_void_p, ctypes.c_void_p],
+                            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    },
+    "fused_mlp_bf16": {
+        "mlp_pass_bf16_launch": [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p],
     },
 }
 

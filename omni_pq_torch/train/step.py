@@ -18,8 +18,11 @@ The generator's draws come in a fixed order: the student's dropout masks,
 the teacher's dropout masks, then the gamma criterion's choice of quads and
 points (`losses.gamma.draw_choice`). With TrainFlags(ema=False,
 gamma_mixture=False, arkit=False) the step is the `sup` baseline of
-docs/SEMI_SUP.md. A bfloat16 teacher (`teacher_bf16`) is not ported yet and
-raises.
+docs/SEMI_SUP.md. The student computes at its config's compute_dtype;
+`teacher_bf16` runs the teacher's forward at bfloat16 compute on the same
+float32 EMA parameters and BN state (`models.with_compute_dtype`), and its
+end points go to the consistency loss in float32, as the JAX step casts
+them; losses stay float32.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 
 from ..config import ModelConfig
 from ..infer import eval_forward
+from ..models.pointnet2 import with_compute_dtype
 from ..losses import (gamma_mixture_guide_criterion, get_arkit_pc_loss,
                       get_consistency_loss, get_loss)
 from .state import TrainState, global_norm
@@ -45,6 +49,8 @@ class TrainFlags:
     arkit: bool = False
     pc_loss: bool = True
     use_fitted_mixture: bool = False
+    # the EMA teacher's forward at bfloat16 compute (its parameters and BN
+    # state stay float32; the student and the losses keep their dtype)
     teacher_bf16: bool = False
     ema_decay: float = 0.999
     lambda_metric_normal: float = 5e-4
@@ -90,12 +96,24 @@ def make_train_step(model, cfg: ModelConfig, mean_size_arr,
     tensors under the JAX step's names: every `get_loss` stat, the gamma,
     consistency and ARKit stats of the flags that are on, `total_loss` and
     `grad_norm` (the global norm before clipping)."""
-    if flags.teacher_bf16:
-        raise NotImplementedError(
-            "TrainFlags.teacher_bf16=True: the port has no bfloat16 teacher "
-            "yet (it comes with the bfloat16 routes)")
     num_layer = cfg.num_decoder_layers
     double = flags.ema or flags.gamma_mixture or flags.arkit
+
+    def _teacher_forward(teacher, clouds, generator):
+        """The EMA teacher's train-mode forward under no_grad (bfloat16
+        compute with teacher_bf16), its floating end points in float32."""
+        teacher.train()
+        try:
+            with torch.no_grad():
+                if flags.teacher_bf16:
+                    with with_compute_dtype(teacher, torch.bfloat16):
+                        ep = teacher(clouds, generator=generator)
+                else:
+                    ep = teacher(clouds, generator=generator)
+        finally:
+            teacher.eval()
+        return {k: v.float() if v.is_floating_point() else v
+                for k, v in ep.items()}
 
     def train_step(state: TrainState, labeled: Mapping,
                    weak: Optional[Mapping] = None,
@@ -114,15 +132,10 @@ def make_train_step(model, cfg: ModelConfig, mean_size_arr,
         model.train()
         ep = model(inputs, generator=generator)
         if flags.ema:
-            teacher = state.ema_model
-            teacher.train()
-            try:
-                with torch.no_grad():
-                    ema_ep = teacher(torch.cat([labeled["ema_point_clouds"],
-                                                weak["ema_point_clouds"]]),
-                                     generator=generator)
-            finally:
-                teacher.eval()
+            ema_ep = _teacher_forward(
+                state.ema_model, torch.cat([labeled["ema_point_clouds"],
+                                            weak["ema_point_clouds"]]),
+                generator)
 
         # 1. supervised loss on the labeled half
         merged = {k: v[:B] for k, v in ep.items()}

@@ -3,7 +3,8 @@
 `ball_query_group`, `ball_query`) at the eval forward's shapes (six FPS
 calls, five ball queries), and of the fused SA-MLP kernels
 (`ops.fused_mlp.kernel_mlp_pool`) on the four calls of a `fused_sa=True`
-eval forward (B=16) and of a train-mode forward (B=3), read from three
+eval forward (B=16) and of a train-mode forward (B=3), in float32 and, where
+the checkout has `ModelConfig.compute_dtype`, in bfloat16, read from three
 clocks:
 
 - events: CUDA events around 10 back-to-back Python calls, divided by 10
@@ -56,10 +57,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = {"fps": r"::fps_kernel\b",
            "ball_query_group": r"::(ball_query|chunk_box)_kernel\b",
            "ball_query": r"::(ball_query|chunk_box)_kernel\b",
-           # the pass plan's kernels, and the stats kernel of the train
-           # mode's earlier chained design, for A/B runs against it
-           "fused_mlp": r"::(fused_mlp|fused_mlp_stats|mlp_pass|mlp_stats"
-                        r"|mlp_pool)_kernel\b"}
+           # the pass plan's kernels (float32 and bfloat16), and the stats
+           # kernel of the train mode's earlier chained design, for A/B runs
+           # against it
+           "fused_mlp": r"::(fused_mlp(_bf16)?|fused_mlp_stats"
+                        r"|mlp_pass(_bf16)?|mlp_stats|mlp_pool)_kernel\b"}
 TRAIN_B = 3
 
 
@@ -71,13 +73,13 @@ def fused_calls(ops, model, pc, train, generator=None):
     real = ops.fused_mlp_pool
 
     def recorder(grouped, weights, scales, biases, ra_means=(), ra_vars=(),
-                 *, train, eps=1e-5):
+                 *, train, eps=1e-5, dtype=torch.float32):
         calls.append(tuple(t.detach() if torch.is_tensor(t) else
                            [x.detach().clone() for x in t]
                            for t in (grouped, weights, scales, biases,
-                                     ra_means, ra_vars)) + (train, eps))
+                                     ra_means, ra_vars)) + (train, eps, dtype))
         return real(grouped, weights, scales, biases, ra_means, ra_vars,
-                    train=train, eps=eps)
+                    train=train, eps=eps, dtype=dtype)
     ops.fused_mlp_pool = recorder
     try:
         with torch.no_grad():
@@ -133,13 +135,20 @@ def main() -> int:
     bq.append(("vote_aggregation", (0.3, cfg.vote_aggregation_nsample,
                                     ep["vote_xyz"], ep["aggregated_vote_xyz"])))
     calls["ball_query_group"] = calls["ball_query"] = bq
-    fused = build_model(dataclasses.replace(cfg, fused_sa=True), dev, seed=0)
-    calls["fused_mlp"] = [
-        (f"sa{i + 1} {'train' if train else 'eval'}", fargs)
-        for train, x, gen in (
-            (False, pc, None),
-            (True, pc[:TRAIN_B], torch.Generator(dev).manual_seed(0)))
-        for i, fargs in enumerate(fused_calls(ops, fused, x, train, gen))]
+    dtypes = (["float32", "bfloat16"] if "compute_dtype" in {
+        f.name for f in dataclasses.fields(ModelConfig)} else ["float32"])
+    calls["fused_mlp"] = []
+    for dt in dtypes:
+        fused = build_model(dataclasses.replace(cfg, fused_sa=True, **(
+            {"compute_dtype": dt} if dt != "float32" else {})), dev, seed=0)
+        calls["fused_mlp"] += [
+            (f"sa{i + 1} {'train' if train else 'eval'}"
+             + ("" if dt == "float32" else " bf16"), fargs)
+            for train, x, gen in (
+                (False, pc, None),
+                (True, pc[:TRAIN_B], torch.Generator(dev).manual_seed(0)))
+            for i, fargs in enumerate(fused_calls(ops, fused, x, train,
+                                                  gen))]
     rows = []
     for entry, entry_calls in calls.items():
         fn = kernel_mlp_pool if entry == "fused_mlp" else getattr(ops, entry)

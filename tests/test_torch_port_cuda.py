@@ -246,8 +246,8 @@ FUSED_CASES = {
 }
 
 
-def _fused_inputs(case, dev, seed=0):
-    B, S, K, C0, widths = FUSED_CASES[case]
+def _fused_inputs(case, dev, seed=0, table=None):
+    B, S, K, C0, widths = (FUSED_CASES if table is None else table)[case]
     r = np.random.default_rng(seed)
     grouped = _cuda(r.normal(size=(B, S, K, C0)), dev)
     ws, ss, bs, rm, rv = [], [], [], [], []
@@ -338,8 +338,8 @@ def _kernel_launches(fn):
         torch.cuda.synchronize()
     counts = {}
     for e in prof.key_averages():
-        m = re.search(r"::(fused_mlp|mlp_pass|mlp_stats|mlp_pool)_kernel\b",
-                      e.key)
+        m = re.search(r"::(fused_mlp(?:_bf16)?|mlp_pass(?:_bf16)?|mlp_stats"
+                      r"|mlp_pool)_kernel\b", e.key)
         if m and e.device_type == DeviceType.CUDA:
             counts[m.group(1)] = counts.get(m.group(1), 0) + e.count
     return {k: round(v / 10) for k, v in counts.items()}
@@ -365,6 +365,184 @@ def test_fused_mlp_wrapper_counts_and_checks(dev):
     with pytest.raises(ValueError, match="contiguous"):
         ops.fused_mlp_pool(grouped.transpose(1, 2), ws, ss, bs, rm, rv,
                            train=False)
+
+
+# The eval mode at K where a chained tile no longer fits in shared memory
+# (sa2's widths from K = 120): it runs the pass plan with the running
+# statistics (L passes and a pool launch, no chained kernel, no stats).
+FUSED_EVAL_LARGE_K = {
+    "k128_sa2": (1, 6, 128, 259, (256, 256, 512)),
+    "k200_sa2": (1, 4, 200, 259, (256, 256, 512)),
+    # xyz only (C0 = 3): a_1 recomputed, so 2 passes
+    "k256_xyz": (1, 3, 256, 3, (256, 256, 512)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_EVAL_LARGE_K))
+def test_fused_mlp_eval_at_large_k_matches_plain(dev, case):
+    from omni_pq_torch.ops.fused_mlp import eval_chained, pass_plan
+    _, _, K, C0, widths = FUSED_EVAL_LARGE_K[case]
+    args = _fused_inputs(case, dev, table=FUSED_EVAL_LARGE_K)
+    chans = [C0, *widths]
+    assert not eval_chained(chans, K)
+    got = kernel_mlp_pool(*args, False, 1e-5)
+    torch.cuda.synchronize()
+    want = plain_mlp_pool(*args, False, 1e-5)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    assert got[1] == got[2] == ()
+    passes = len(pass_plan(chans, train=False))
+    assert _kernel_launches(lambda: kernel_mlp_pool(*args, False, 1e-5)) == {
+        "mlp_pass": passes, "mlp_pool": 1}
+
+
+# The bfloat16 mode (K % 16 == 0), against the plain bfloat16 version (cuBLAS
+# with float32 sums). The kernels sum each product in another order, which
+# flips a rounding of af to bfloat16 now and then (one bfloat16 ulp,
+# 2^-8 relative); a flip moves the next layer's sums by one term's ulp and
+# may flip roundings there, so a flip's trace stays a few bfloat16 ulps of
+# the values it touches, on a small share of them. Bounds (chip_smoke.py's,
+# which sit between the kernels' readings and a control's at the model's
+# shapes): the pooled output within 2^-9 of its norm (norm-relative), every
+# element within 2^-5 of the output's largest magnitude (a gross bound);
+# batch means within 2^-12 x (1 + |mean|) and variances 2^-11 relative +
+# 2^-12 abs (each sums B*S*K values of af, of which a few flipped). The
+# control, the float32 chain rounded to bfloat16 only at its output, must
+# fall outside the norm bound (and, train, the stats bounds).
+FUSED_BF16_CASES = {
+    "sa1": (2, 40, 64, 3, (128, 128, 256)),
+    "sa1_signed": (2, 40, 64, 3, (128, 128, 256)),
+    "sa2": (2, 24, 32, 259, (256, 256, 512)),
+    "sa3": (2, 17, 16, 515, (256, 256, 512)),
+    "sa3_signed": (2, 17, 16, 515, (256, 256, 512)),
+    "sa4_full_width": (3, 256, 16, 515, (256, 256, 512)),
+    "k16_one_layer": (3, 5, 16, 20, (128,)),
+    "k48_tiles": (2, 25, 48, 36, (128, 256)),  # 96-row tiles, partial last
+    "k144": (1, 3, 144, 5, (128, 128)),        # segments of 48 rows
+    "k128_sa2": (1, 6, 128, 259, (256, 256, 512)),
+    "k256_sa2": (1, 2, 256, 259, (256, 256, 512)),  # eval by the pass plan
+}
+BF16_NORM_REL = 2.0 ** -9
+BF16_ELEMENT_OF_MAX = 2.0 ** -5
+BF16_MEAN_REL = 2.0 ** -12
+BF16_VAR_TOL = dict(rtol=2.0 ** -11, atol=2.0 ** -12)
+
+
+def _bf16_gaps(got, want):
+    g, w = got.double(), want.double()
+    return (float((g - w).norm() / w.norm().clamp_min(1e-30)),
+            float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)))
+
+
+def _bf16_stats_close(got, want):
+    """Every batch mean and variance of got (pooled, means, variances)
+    within its bound of want's."""
+    return all(float((a - b).abs().max()) <= BF16_MEAN_REL * (
+        1 + float(b.abs().max())) for a, b in zip(got[1], want[1])) and all(
+        torch.allclose(a, b, **BF16_VAR_TOL) for a, b in zip(got[2], want[2]))
+
+
+def _bf16_close(got, want, what):
+    rel, worst = _bf16_gaps(got, want)
+    assert rel <= BF16_NORM_REL and worst <= BF16_ELEMENT_OF_MAX, (
+        what, rel, worst)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("case", sorted(FUSED_BF16_CASES))
+def test_fused_mlp_bf16_kernel_matches_plain(dev, case, train):
+    widths = FUSED_BF16_CASES[case][4]
+    args = _fused_inputs(case, dev, table=FUSED_BF16_CASES)
+    bf16 = torch.bfloat16
+    got = kernel_mlp_pool(*args, train, 1e-5, bf16)
+    torch.cuda.synchronize()
+    want = plain_mlp_pool(*args, train, 1e-5, bf16)
+    assert got[0].dtype == want[0].dtype == bf16
+    assert torch.isfinite(got[0].float()).all()
+    _bf16_close(got[0], want[0], "pooled")
+    assert len(got[1]) == len(want[1]) == (len(widths) if train else 0)
+    assert _bf16_stats_close(got, want)
+    # the control: the float32 chain, rounded to bfloat16 at its output,
+    # falls outside the bounds on the pooled norm and the stats
+    control = plain_mlp_pool(*args, train, 1e-5, torch.float32)
+    assert _bf16_gaps(control[0].to(bf16), want[0])[0] > BF16_NORM_REL
+    if train:  # some batch mean, and some variance, outside its bound
+        assert not _bf16_stats_close(((), control[1], ()), ((), want[1], ()))
+        assert not _bf16_stats_close(((), (), control[2]), ((), (), want[2]))
+    if train:  # fixed-order reductions: the same bits every run
+        again = kernel_mlp_pool(*args, train, 1e-5, bf16)
+        for a, b in zip(got[1] + got[2], again[1] + again[2]):
+            assert torch.equal(a, b)
+        assert torch.equal(got[0], again[0])
+
+
+def test_fused_mlp_bf16_wrapper_counts_and_checks(dev):
+    """An eval call is one bfloat16 chained-kernel launch where its tile
+    fits, a train call L bfloat16 passes, L stats and one pool launch; the
+    bfloat16 mode takes K % 16 == 0 only."""
+    grouped, ws, ss, bs, rm, rv = _fused_inputs("sa2", dev,
+                                                table=FUSED_BF16_CASES)
+    bf16 = torch.bfloat16
+    before = ops.fused_mlp_pool.launches
+    ops.fused_mlp_pool(grouped, ws, ss, bs, rm, rv, train=False, dtype=bf16)
+    ops.fused_mlp_pool(grouped, ws, ss, bs, train=True, dtype=bf16)
+    assert ops.fused_mlp_pool.launches == before + 2
+    assert _kernel_launches(lambda: ops.fused_mlp_pool(
+        grouped, ws, ss, bs, rm, rv, train=False, dtype=bf16)) == {
+            "fused_mlp_bf16": 1}
+    assert _kernel_launches(lambda: ops.fused_mlp_pool(
+        grouped, ws, ss, bs, train=True, dtype=bf16)) == {
+            "mlp_pass_bf16": 3, "mlp_stats": 3, "mlp_pool": 1}
+    with pytest.raises(ValueError, match="K % 16"):
+        ops.fused_mlp_pool(grouped[:, :, :24].contiguous(), ws, ss, bs, rm,
+                           rv, train=False, dtype=bf16)
+
+
+def test_bf16_products_sum_in_float32_on_card(dev):
+    """ops.matmul's matmul and linear in bfloat16 on the card against the
+    same products on the CPU (which sums bfloat16 products in float32), at
+    a depth of 4096 where cuBLAS may split the sum: forward and gradients
+    within 2^-9 of their norm (the float32 sums run in another order and
+    flip a rounding to bfloat16 by one ulp, 2^-8 relative, now and then);
+    the switch they open is closed again after each call."""
+    from omni_pq_torch.ops import matmul as mm
+    m = torch.backends.cuda.matmul
+    before = m.allow_bf16_reduced_precision_reduction
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(3, 64, 4096, generator=gen).to(torch.bfloat16)
+    b = torch.randn(4096, 96, generator=gen).to(torch.bfloat16)
+    w = torch.randn(96, 4096, generator=gen).to(torch.bfloat16)
+    for fn, x, y in ((mm.matmul, a, b), (mm.linear, a, w)):
+        out = []
+        for d in (dev, "cpu"):
+            xs, ys = (t.to(d).clone().requires_grad_() for t in (x, y))
+            r = fn(xs, ys)
+            (r.float() * torch.linspace(-1, 1, r.shape[-1],
+                                        device=d)).sum().backward()
+            out.append([t.detach().float().cpu()
+                        for t in (r, xs.grad, ys.grad)])
+        assert m.allow_bf16_reduced_precision_reduction == before
+        for got, want in zip(*out):
+            assert float((got - want).norm()) <= 2.0 ** -9 * float(
+                want.norm())
+
+
+def test_fused_mlp_bf16_gradients_on_card_match_cpu(dev):
+    """The backward (a remat through the plain bfloat16 chain) on the card
+    against the CPU's: both round the same chain to bfloat16, cuBLAS and
+    the CPU sum in other orders, so the gradients agree to a few bfloat16
+    ulps of their norm."""
+    args = _fused_inputs("sa2", dev, seed=1, table=FUSED_BF16_CASES)
+    cpu = [args[0].cpu()] + [[t.cpu() for t in ts] for ts in args[1:]]
+    grads = []
+    for grouped, ws, ss, bs, rm, rv in (args, cpu):
+        leaves = [grouped.requires_grad_()] + [
+            t.requires_grad_() for t in ws + ss + bs]
+        pooled, _, _ = ops.fused_mlp_pool(grouped, ws, ss, bs, train=True,
+                                          dtype=torch.bfloat16)
+        (pooled.float().sin().sum()).backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        assert float((a - b).norm()) <= 2.0 ** -6 * float(b.norm())
 
 
 @pytest.mark.parametrize("case", ["no_hit_centres", "overflowing"])

@@ -161,16 +161,16 @@ def test_fused_op_on_cpu_matches_jax_fused_kernel(case):
     (16, (288, 288), torch.float32, False),   # vote_aggregation
     (12, (128,), torch.float32, False),       # K % 8
     (16, (128,), torch.float64, False),       # float64 runs
-    (64, (128, 128, 256), torch.bfloat16, False),  # float32 only here
+    (64, (128, 128, 256), torch.bfloat16, True),  # bfloat16, K % 16 == 0
 ])
 def test_supports_gate(K, channels, dtype, want):
-    """The JAX gate's cases (tests/test_fused_mlp.py::test_supports_gate);
-    the port routes float32 only, so bfloat16, which JAX fuses, does not."""
+    """The JAX gate's cases (tests/test_fused_mlp.py::test_supports_gate):
+    the port routes the same shapes and dtypes as the JAX package (more
+    bfloat16 cases in tests/test_torch_port_bf16.py)."""
     assert tfused.supports(K, channels, dtype) is want
     jdt = {torch.float32: jnp.float32, torch.float64: jnp.float64,
            torch.bfloat16: jnp.bfloat16}[dtype]
-    assert jfused.supports(K, channels, jdt) is (
-        want or dtype == torch.bfloat16)
+    assert jfused.supports(K, channels, jdt) is want
 
 
 # a small PQTransformer whose SA layers all pass the gate

@@ -16,7 +16,11 @@ ctypes. The tests skip only when g++ is missing.
 step and the train mode's pool from a centre's max and min
 (`pool_from_extremes`); the same harness builds it, and it must equal numpy
 float32's relu((a - mu) * mul + b), computed op by op, bitwise, and the max
-of that over a centre's rows.
+of that over a centre's rows. The bfloat16 mode's step (`round_bf16`,
+`bn_relu_bf16`, `pool_from_extremes_bf16`) is held bitwise against numpy
+with ml_dtypes' bfloat16: af = a rounded to bfloat16, the BN in float32 op
+by op, the result rounded to bfloat16, then the relu (+0 for every value
+<= 0), and the max of that over a centre's rows.
 
 The harness builds serial models of the kernels' loops from the header: FPS
 over the slices of a P-CTA cluster (each thread's first maximum, each
@@ -40,6 +44,7 @@ import subprocess
 from pathlib import Path
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -90,6 +95,11 @@ def lib(tmp_path_factory):
     h.mlp_bn_relu.argtypes = [_F32, ctypes.c_longlong, ctypes.c_int, _F32,
                               _F32, _F32, _F32]
     h.mlp_bn_relu.restype = None
+    for name in ("mlp_bn_relu_bf16", "mlp_pool_bf16", "round_bf16_n"):
+        getattr(h, name).restype = None
+    h.mlp_bn_relu_bf16.argtypes = h.mlp_bn_relu.argtypes
+    h.mlp_pool_bf16.argtypes = h.mlp_pool.argtypes
+    h.round_bf16_n.argtypes = [_F32, ctypes.c_longlong, _F32]
     return h
 
 
@@ -334,3 +344,65 @@ def test_pool_from_extremes_is_the_max_of_bn_relu_bitwise(lib, case):
     assert not np.signbit(got).any()  # the pool is never -0
     if case == "all_negative":
         assert (got[2] == 0).all()
+
+
+def _bf16(x):
+    """numpy float32 rounded to bfloat16 (ties to even) and back."""
+    with np.errstate(invalid="ignore"):  # NaN stays NaN
+        return np.asarray(x, np.float32).astype(ml_dtypes.bfloat16).astype(
+            np.float32)
+
+
+def test_round_bf16_matches_ml_dtypes_bitwise(lib):
+    """mlp_logic::round_bf16 (the host spelling of __float2bfloat16_rn) on
+    ties, values next to ties, subnormals, the largest finite values (which
+    round to inf), infinities and NaN."""
+    r = np.random.default_rng(17)
+    bits = np.concatenate([
+        r.integers(0, 2 ** 32, 20000, dtype=np.uint64).astype(np.uint32),
+        np.array([0x3f808000, 0x3f818000, 0x3f807fff, 0x3f808001,  # ties
+                  0x00008000, 0x00018000, 0x00000001, 0x807fffff,  # subnormal
+                  0x7f7fffff, 0xff7fffff, 0x7f7f8000, 0x7f800000,
+                  0xff800000, 0x00000000, 0x80000000], np.uint32)])
+    a = bits.view(np.float32)
+    got = np.zeros_like(a)
+    lib.round_bf16_n(a.ctypes.data_as(_F32), a.size,
+                     got.ctypes.data_as(_F32))
+    want = _bf16(a)
+    finite = ~np.isnan(want)
+    np.testing.assert_array_equal(got[finite].view(np.uint32),
+                                  want[finite].view(np.uint32))
+    assert np.isnan(got[~finite]).all()
+
+
+@pytest.mark.parametrize("case", ["signs", "ties", "all_negative",
+                                  "zero_bias"])
+def test_pool_from_extremes_bf16_is_the_max_of_bn_relu_bitwise(lib, case):
+    """The bfloat16 mode's BN step equals numpy's relu(bf16((bf16(a) - mu) *
+    mul + b)) bitwise, op by op in float32, and its pool from a centre's
+    max and min of bf16(a) equals the max over the rows, for scales of both
+    signs, +0 and -0, ties and centres that relu to 0 (rounding to bfloat16
+    is monotone, so the max/min choice still holds bitwise)."""
+    a, mu, mul, b = _mlp_case(case)
+    if case == "zero_bias":  # bf16(a) - mu = 0 exactly in centre 1
+        mu = _bf16(mu)
+        a[1] = mu
+    else:
+        a = a * np.float32(3.3)  # values off the bfloat16 grid
+    centres, K, C = a.shape
+    a_c, ap = _f32(a)
+    vecs = [_f32(v) for v in (mu, mul, b)]
+    y = _bf16((_bf16(a) - mu) * mul + b)
+    want_h = np.where(y > 0, y, np.float32(0))
+    got_h = np.zeros_like(a)
+    lib.mlp_bn_relu_bf16(ap, a.size, C, *(p for _, p in vecs),
+                         got_h.ctypes.data_as(_F32))
+    np.testing.assert_array_equal(got_h.view(np.uint32),
+                                  want_h.view(np.uint32))
+    want = want_h.max(axis=1)
+    got = np.zeros((centres, C), np.float32)
+    lib.mlp_pool_bf16(ap, centres, K, C, *(p for _, p in vecs),
+                      got.ctypes.data_as(_F32))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert not np.signbit(got).any()
+    assert (got == _bf16(got)).all()  # bfloat16 values

@@ -350,13 +350,17 @@ def test_whole_supervised_step_matches_jax(jax_step):
 
 
 def test_eval_step_and_flags_the_step_does_not_support():
-    """Only a bfloat16 teacher is refused; the semi-supervised flags build
-    a step, which asks for the weak batch and the EMA replica it needs."""
+    """Every flag builds a step (a bfloat16 teacher too, since it is
+    ported: tests/test_torch_port_bf16.py); the semi-supervised flags ask
+    for the weak batch and the EMA replica they need."""
     cfg = ModelConfig(num_points=512, **SMOKE_MODEL)
     model = build_model(cfg, "cpu", seed=9)
-    with pytest.raises(NotImplementedError, match="teacher_bf16"):
-        make_train_step(model, cfg, SCANNET_MEAN_SIZES,
-                        TrainFlags(teacher_bf16=True))
+    step = make_train_step(model, cfg, SCANNET_MEAN_SIZES,
+                           TrainFlags(teacher_bf16=True))
+    with pytest.raises(ValueError, match="ema=True"):
+        step(TrainState(model, OptimizerConfig()),
+             batch_to_tensors(make_batch(np.random.default_rng(11), 1, 512),
+                              "cpu"), {})
     batch = batch_to_tensors(make_batch(np.random.default_rng(11), 1, 512),
                              "cpu")
     for flag in ("ema", "gamma_mixture", "arkit"):
@@ -391,9 +395,11 @@ def test_dropout_keeps_one_minus_p_and_rescales():
 
 
 def test_train_cli_smoke_on_cpu(tmp_path):
+    """At float32 (--f32); the bfloat16 default is
+    tests/test_torch_port_bf16.py's."""
     last = train_cli.main([
         "--smoke", "--synthetic_data", "--num_point", "512", "--device",
-        "cpu", "--max_epoch", "1", "--batch_size", "4", "--pc_loss",
+        "cpu", "--max_epoch", "1", "--batch_size", "4", "--pc_loss", "--f32",
         "--log_dir", str(tmp_path)])
     recs = [json.loads(line) for line in
             (tmp_path / "metrics.jsonl").read_text().splitlines()]
@@ -413,11 +419,12 @@ def test_train_cli_smoke_on_cpu(tmp_path):
                                     "0.1"]])
 def test_semi_supervised_train_cli_smoke_on_cpu(tmp_path, flags):
     """The semi-supervised flags: a weak synthetic batch each step, the EMA
-    teacher with --ema, and the losses' stats in the metrics."""
+    teacher with --ema, and the losses' stats in the metrics (at float32,
+    --f32; the bfloat16 default is tests/test_torch_port_bf16.py's)."""
     last = train_cli.main([
         "--smoke", "--synthetic_data", "--num_point", "512", "--device",
         "cpu", "--max_epoch", "1", "--batch_size", "8", "--rng_seed", "3",
-        "--log_dir", str(tmp_path), *flags])
+        "--f32", "--log_dir", str(tmp_path), *flags])
     recs = [json.loads(line) for line in
             (tmp_path / "metrics.jsonl").read_text().splitlines()]
     assert [r["step"] for r in recs] == list(range(1, 5))  # 32 scenes / 8

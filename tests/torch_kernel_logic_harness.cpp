@@ -214,4 +214,39 @@ void mlp_bn_relu(const float* a, long long n, int C, const float* mu,
     out[i] = mlp_logic::bn_relu(a[i], mu[i % C], mul[i % C], b[i % C]);
 }
 
+// The bfloat16 mode: mlp_logic::bn_relu_bf16 of each element (a is the
+// float32 sum of a product, rounded to bfloat16 inside), and the pool from
+// each centre's max and min of af = round_bf16(a) with
+// pool_from_extremes_bf16, as the bfloat16 pass kernel and the pool launch
+// compute them.
+void mlp_bn_relu_bf16(const float* a, long long n, int C, const float* mu,
+                      const float* mul, const float* b, float* out) {
+  for (long long i = 0; i < n; ++i)
+    out[i] = mlp_logic::bn_relu_bf16(a[i], mu[i % C], mul[i % C], b[i % C]);
+}
+
+void mlp_pool_bf16(const float* a, int centres, int K, int C,
+                   const float* mu, const float* mul, const float* b,
+                   float* out) {
+  for (int n = 0; n < centres; ++n)
+    for (int c = 0; c < C; ++c) {
+      float mx = mlp_logic::round_bf16(
+          a[(static_cast<long long>(n) * K) * C + c]);
+      float mn = mx;
+      for (int k = 1; k < K; ++k) {
+        const float v = mlp_logic::round_bf16(
+            a[(static_cast<long long>(n) * K + k) * C + c]);
+        mx = fmaxf(mx, v);
+        mn = fminf(mn, v);
+      }
+      out[static_cast<long long>(n) * C + c] =
+          mlp_logic::pool_from_extremes_bf16(mx, mn, mu[c], mul[c], b[c]);
+    }
+}
+
+// mlp_logic::round_bf16 of each of n elements
+void round_bf16_n(const float* a, long long n, float* out) {
+  for (long long i = 0; i < n; ++i) out[i] = mlp_logic::round_bf16(a[i]);
+}
+
 }  // extern "C"
