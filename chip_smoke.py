@@ -11,7 +11,9 @@ when every phase passed:
      CUDA versions; TF32 is switched off for matmuls and cuDNN.
   2. build: every CUDA kernel of the path from omni_pq_torch/csrc, one nvcc
      per source, all started together; prints ptxas' register, shared
-     memory and spill report.
+     memory and spill report of each kernel (template arguments mangled:
+     the bfloat16 pass kernel's <A source bfloat16, columns an item>), and
+     fails where ptxas serialises the bfloat16 kernels' wgmma products.
   3. main path: the full-width ModelConfig() eval forward on B=16 synthetic
      40 000-point scenes (omni_pq_torch.data.make_batch) with random weights
      from a seeded torch.Generator. The launch counts are set to 0 just
@@ -95,14 +97,17 @@ when every phase passed:
      largest value, while the float32 chain rounded at its output falls
      outside the norm bound; CUDA events, profiler device time, the plain
      chain's time and the bound (bytes over 3.35 TB/s, operations over 989
-     TFLOP/s dense bfloat16).
+     TFLOP/s dense bfloat16); each call's achieved TFLOP/s and share of
+     the bound by device time, and the four calls' sum.
  15. the CLIs' default training configuration: the semi-supervised step
      with a bfloat16 student and TrainFlags(teacher_bf16=True), 3 + 3
      scenes, both routes, 2 steps each: finite stats with the JAX step's
      names, 12 FPS, 10 ball-query and (fused) 8 bfloat16 fused launches;
      the fused step's 8 train-mode calls (student and bfloat16 teacher,
      B=6) held against their plain bfloat16 version as in phase 14 (batch
-     statistics too) and timed likewise; warmed ms/step in turns, peak
+     statistics too) and timed likewise, beside the pass plan's byte
+     floor (the function's bytes and every stored a_j written and read
+     back once); warmed ms/step in turns, peak
      memory, a profile of one step per route (kernel time, busy share,
      every bfloat16 pass, stats and pool launch seen).
  16. the float32 fused eval mode at K = 128 and 200 with sa2's widths,
@@ -254,30 +259,39 @@ def bound_ms(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_ms(fn, pattern: str, reps: int = 10, tries: int = 3):
+def device_ms(fn, pattern: str, reps: int = 10, tries: int = 8):
     """The matching kernels' own time a call: for each kernel whose
     torch.profiler name matches `pattern`, its mean over the launches traced
     in `reps` warmed calls times its launches a call (the traced count over
     `reps`, rounded), summed over the kernels. The profiler may drop some
-    launches' records, now and then a whole window's (seen on the H100): a
-    window with none is traced again, up to `tries` times. None if every
+    launches' records, now and then whole windows' (seen on the H100, up to
+    three in a row late in a long run): a window with none is reported on
+    stderr and traced again after a pause, up to `tries` times, the later
+    windows held open a moment after their synchronize. None if every
     window came back empty."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.2)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.count
-                and re.search(pattern, e.key)]
+            if attempt:
+                time.sleep(0.05)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.count]
+        kern = [e for e in events if re.search(pattern, e.key)]
         if kern:
             return sum(e.self_device_time_total / e.count
                        * max(1, round(e.count / reps)) for e in kern) / 1e3
+        print(f"[profiler] window {attempt + 1} of {tries} held no kernel "
+              f"matching {pattern!r}: {len(events)} device records "
+              f"{[e.key[:60] for e in events[:4]]}", file=sys.stderr)
     return None
 
 
@@ -762,8 +776,8 @@ def fused_kernel_rows(records, mode, names=None):
     recorded inputs (one record per fused SA layer call, named sa1..sa4 in
     call order unless `names` are given), in the call's compute dtype."""
     import torch
-    from omni_pq_torch.ops.fused_mlp import (kernel_mlp_pool, plain_mlp_pool,
-                                            plan_costs)
+    from omni_pq_torch.ops.fused_mlp import (kernel_mlp_pool, pass_plan,
+                                            plain_mlp_pool, plan_costs)
     names = names or [f"sa{i + 1}" for i in range(len(records))]
     rows = []
     for name, rec in zip(names, records):
@@ -834,12 +848,20 @@ def fused_kernel_rows(records, mode, names=None):
                   + got[0].element_size() * Bx * S * chans[-1])
         bnd, by = bound_ms(nbytes, one, F32_OPS_PER_S if dt == torch.float32
                            else BF16_OPS_PER_S)
+        # the pass plan's own floor: it also writes every stored a_j once
+        # and reads it back once, so its bytes cannot go below these
+        size = torch.finfo(dt).bits // 8
+        stored = (sum(size * rows_n * chans[p.layer + 1]
+                      for p in pass_plan(chans, dt) if p.store)
+                  if rec["train"] else 0)
+        floor_ms = (nbytes + 2 * stored) / HBM_BYTES_PER_S * 1e3
         rows.append(dict(call=name, mode=mode, dtype=str(dt),
                          shape=f"B{Bx} S{S} K{K} C{'/'.join(map(str, chans))}",
                          max_abs_err=max(errs.values()), errs=errs,
                          readings=readings, control=control,
                          chain_flops=one, kernel_flops=ran,
                          chains_run=ran / one, scratch_bytes=scratch,
+                         stored_bytes=stored, pass_floor_ms=floor_ms,
                          bound_ms=bnd, bound_by=by, args=args))
     return rows
 
@@ -868,6 +890,31 @@ def time_fused_rows(frows, card):
               f"({row['bound_by']}, one chain; the kernels run "
               f"{row['chains_run']:.4f} chains, scratch "
               f"{row['scratch_bytes']} bytes)  [{card}]")
+        # achieved rate and share of the bound, by device time; train
+        # passes beside their stored-a_j byte floor
+        row["tflops"] = row["chain_flops"] / row["device_ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        print(f"[time]   {row['call']} {row['mode']}: {row['tflops']:.1f} "
+              f"TFLOP/s of one chain by device time, {row['bound_share']:.3f}"
+              f" of its bound" + (
+                  f"; the pass plan's byte floor {row['pass_floor_ms']:.4f} "
+                  f"ms (stored a_j {row['stored_bytes']} bytes written and "
+                  f"read back) beside the bound {row['bound_ms']:.4f} ms"
+                  if row["stored_bytes"] else ""))
+
+
+def print_fused_total(frows, what, card):
+    """The summed device time of a phase's fused calls beside their summed
+    bound (and, for train calls, the pass plan's byte floor)."""
+    dev_ms = sum(r["device_ms"] for r in frows)
+    bnd = sum(r["bound_ms"] for r in frows)
+    floor = sum(r["pass_floor_ms"] for r in frows)
+    print(f"[time] {what}: {len(frows)} calls, device {dev_ms:.4f} ms, bound "
+          f"{bnd:.4f} ms ({bnd / dev_ms:.3f} of it), "
+          f"{sum(r['chain_flops'] for r in frows) / dev_ms / 1e9:.1f} TFLOP/s"
+          + (f"; the pass plan's byte floor {floor:.4f} ms"
+             if any(r["stored_bytes"] for r in frows) else "")
+          + f"  [{card}]")
 
 
 def bf16_forward_phase(cfg, pc, model, ep, counted, card):
@@ -1362,6 +1409,8 @@ def bf16_semi_kernel_rows(records, card):
                       f"(float32 chain {r['control']['pooled_norm_rel']:.2e})"
                       for r in frows))
     time_fused_rows(frows, card)
+    print_fused_total(frows, "bf16 pass kernel, the bf16 semi step's calls",
+                      card)
     return frows
 
 
@@ -1500,9 +1549,23 @@ def main() -> int:
     print(f"[build] {len(kernels.build_logs)} kernels in "
           f"{report['build_s']:.1f} s")
     for name, log in kernels.build_logs.items():
+        entry = "?"
         for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:  # the kernel's name and template arguments, mangled
+                k = re.search(r"(\w+_kernel)(I\w*E)?", m.group(1))
+                entry = (k.group(1) + (k.group(2) or "")) if k else m.group(1)
             if "Used" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+                print(f"[build] {name} {entry}: {line.strip()}")
+    # ptxas serialises a kernel's wgmma products (runs each to its end
+    # before the next) where it cannot keep them in flight: C7510-C7519
+    serialised = [line.strip() for line in
+                  kernels.build_logs["fused_mlp_bf16"].splitlines()
+                  if "Potential Performance Loss" in line]
+    print(f"[build] fused_mlp_bf16 wgmma serialisation warnings: "
+          f"{serialised or 'none'}")
+    check(not serialised, "ptxas serialises the bfloat16 kernels' wgmma "
+          "products")
 
     # -- 3. main path
     cfg = ModelConfig()
@@ -1757,6 +1820,8 @@ def main() -> int:
                       f"(float32 chain {r['control']['pooled_norm_rel']:.2e})"
                       for r in brows))
     time_fused_rows(brows, card)
+    print_fused_total(brows, "bf16 eval kernel, the bf16 forward's calls",
+                      card)
 
     # -- 15. the CLIs' default training configuration: bf16 student and
     # teacher; its fused calls against their plain version, and their times

@@ -3,8 +3,9 @@
 // compute mode.
 //
 // nvcc compiles this header into csrc/fused_mlp.cu (the eval-mode chained
-// kernel, the train mode's GEMM passes and its pool epilogue) and
-// csrc/fused_mlp_bf16.cu (their bfloat16 tensor-core forms); g++ compiles
+// kernel, the train mode's GEMM passes and its pool epilogue, float32 and
+// bfloat16; csrc/fused_mlp_bf16.cu computes bn_relu_bf16 a bfloat16 pair
+// at a time, with the same roundings); g++ compiles
 // it into the host harness of tests/test_torch_port_kernel_logic.py
 // (tests/torch_kernel_logic_harness.cpp, built with -ffp-contract=off),
 // which holds it bitwise against numpy. Under g++ the __f*_rn intrinsics

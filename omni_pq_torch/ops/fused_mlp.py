@@ -41,10 +41,13 @@ bfloat16, each product sums bfloat16 x bfloat16 in float32 and is rounded
 to bfloat16 (af); the statistics (float32) and the BN are taken on af in
 float32, and the BN output is rounded to bfloat16 before the ReLU; the
 pooled output is bfloat16. The CUDA kernels of this mode
-(`csrc/fused_mlp_bf16.cu`) run the products on the tensor cores, the eval
-chain with bfloat16 activations in shared memory, the pass plan with
-bfloat16 scratch (a_j stored exactly as af) and without the a_1
-recompute.
+(`csrc/fused_mlp_bf16.cu`) run the products with wgmma on the tensor
+cores, fed by bulk asynchronous copies of weight stages that
+`_weights_packed` lays out: the eval chain with every layer's activations
+in registers (where a warpgroup's 64 rows hold whole centres and the
+middle layers are at most 256 wide, `eval_chained`; else the pass plan),
+the pass plan with bfloat16 scratch (a_j stored exactly as af) and without
+the a_1 recompute.
 
 The backward recomputes the plain chain under autograd, in the call's
 dtype, and backpropagates through it (the JAX package's `_fused_bwd`);
@@ -183,8 +186,11 @@ def _library(dtype):
 
 def eval_chained(chans: Sequence[int], K: int, dtype=torch.float32) -> bool:
     """Whether an eval call takes the chained kernel rather than the pass
-    plan: whether a tile of whole centres and its chain fit in the card's
-    shared memory, by the need the built library reports."""
+    plan, by the shared-memory need the built library reports (above any
+    block's limit where its chained kernel does not take the shape: float32
+    where a tile of whole centres and its chain do not fit in shared
+    memory, bfloat16 where a centre exceeds a warpgroup's 64 rows or a
+    middle layer the 256 columns that stay in registers)."""
     _, _, lib = cuda.library(_library(dtype))
     fn = getattr(lib, f"{_library(dtype)}_smem_bytes")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
@@ -254,24 +260,30 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _weights_t(weights) -> list[torch.Tensor]:
+def _weights_packed(weights) -> list[tuple[torch.Tensor, int]]:
     """The bfloat16 kernels' weights: each W (C_in, C_out) rounded to
-    bfloat16 and transposed to (C_out, kp), its k zero-padded to kp, a
-    multiple of 64 (the pass kernel's k stage)."""
+    bfloat16, transposed to W^T (C_out, kp) with k zero-padded to kp (a
+    multiple of 64), and packed into the kernels' weight stages
+    (`csrc/wgmma_logic.cuh::packed_weight_index`): stage k // 64 holds
+    every row's 64 k, 8-row group by 8-row group, each 8 x 8 core matrix's
+    128 bytes contiguous, so that a stage of any rows is one bulk copy.
+    Returns [(packed, kp)]."""
     out = []
     for w in weights:
         cin, cout = w.shape
-        wt = torch.zeros(cout, -(-cin // 64) * 64, dtype=torch.bfloat16,
-                         device=w.device)
+        kp = -(-cin // 64) * 64
+        wt = torch.zeros(cout, kp, dtype=torch.bfloat16, device=w.device)
         wt[:, :cin] = w.t()
-        out.append(wt)
+        out.append((wt.view(cout // 8, 8, kp // 64, 8, 8)
+                    .permute(2, 0, 3, 1, 4).contiguous().view(-1), kp))
     return out
 
 
 def _eval_launch(grouped, weights, biases, mus, muls, pooled, dtype):
     B, S, K, C0 = grouped.shape
     chans = [C0] + [w.shape[1] for w in weights]
-    ws = weights if dtype == torch.float32 else _weights_t(weights)
+    packed = None if dtype == torch.float32 else _weights_packed(weights)
+    ws = weights if packed is None else [w for w, _ in packed]
     ptrs = []
     for w, mu, mul, b in zip(ws, mus, muls, biases):
         ptrs += [w.data_ptr(), mu.data_ptr(), mul.data_ptr(), b.data_ptr()]
@@ -281,7 +293,7 @@ def _eval_launch(grouped, weights, biases, mus, muls, pooled, dtype):
             ctypes.cast(c_ptrs, ctypes.c_void_p),
             ctypes.cast(c_chans, ctypes.c_void_p)]
     if dtype != torch.float32:
-        c_kps = (ctypes.c_int * len(ws))(*[w.shape[1] for w in ws])
+        c_kps = (ctypes.c_int * len(ws))(*[kp for _, kp in packed])
         args.append(ctypes.cast(c_kps, ctypes.c_void_p))
     cuda.launch(_library(dtype), grouped.device, *args, len(weights),
                 B * S * K, K)
@@ -303,8 +315,8 @@ def _pass_launch(dtype, p, a, bn, w, wt, cin, cout, rows, K, out, ext, psum,
     else:
         src = a if p.source == "a" else x0
         cuda.launch("fused_mlp_bf16", dev, src.data_ptr(),
-                    int(p.source == "a"), *map(_ptr, bn), wt.data_ptr(),
-                    wt.shape[1], cin, cout, rows, K, _ptr(out),
+                    int(p.source == "a"), *map(_ptr, bn), wt[0].data_ptr(),
+                    wt[1], cin, cout, rows, K, _ptr(out),
                     _ptr(ext[0]), _ptr(ext[1]), _ptr(psum),
                     entry="mlp_pass_bf16_launch")
 
@@ -328,7 +340,7 @@ def _pass_launches(grouped, weights, scales, biases, eps, pooled, dtype,
     tiles = -(-rows // tile_rows)
     empty = lambda *shape, dt=torch.float32: torch.empty(  # noqa: E731
         *shape, dtype=dt, device=dev)
-    wts = (_weights_t(weights) if dtype != torch.float32
+    wts = (_weights_packed(weights) if dtype != torch.float32
            else [None] * len(weights))
     if train:
         means, variances, muls = [], [], []

@@ -13,7 +13,7 @@ clocks:
   more calls: each kernel's mean over its traced launches times its
   launches a call (the traced count over 10, rounded; the profiler may
   drop some records, now and then a whole trace's, which is then taken
-  again, up to 3 times), summed over the kernels (a ball query call on rows
+  again, up to 8 times), summed over the kernels (a ball query call on rows
   above 2048 points is two kernels, the chunk-box pre-pass and the query; a
   fused train-mode call is its GEMM passes, stats and pool launches);
 - host: the host clock around 100 calls (FPS and the fused kernels: 10)
@@ -23,12 +23,18 @@ clocks:
 Fused rows add the plain version's time (events; the cuBLAS GEMM +
 elementwise chain that fused_sa=False runs).
 
+`--semi` adds the 8 fused calls of one bfloat16 semi-supervised step
+(TrainFlags(teacher_bf16=True), student then teacher, B=6: 3 labeled + 3
+weak scenes from seeds 0 and 1), chip_smoke.py's phase 15 calls;
+`--entries` keeps only the named entry points (e.g. `--entries fused_mlp`).
+
 Where events read more than device, the calls are host-bound and events
 measure the wrapper. FPS rows add the device time a step (device / (npoint
 - 1)) and, where the checkout's wrapper reports it, the cluster size the
 kernel ran with. Run on a CUDA card from the root of a checkout:
 
     python3 scripts/torch_kernel_times.py [--root DIR] [--out FILE]
+        [--entries NAME ...] [--semi]
 
 `--root` names the checkout whose omni_pq_torch is measured (default: the
 one holding this script), so that two commits can be compared in one run on
@@ -65,9 +71,9 @@ KERNELS = {"fps": r"::fps_kernel\b",
 TRAIN_B = 3
 
 
-def fused_calls(ops, model, pc, train, generator=None):
-    """The (args of kernel_mlp_pool) of each fused_mlp_pool call of one
-    forward of `model`."""
+def recorded_fused_calls(ops, run):
+    """The (args of kernel_mlp_pool) of each fused_mlp_pool call that
+    run() makes."""
     import torch
     calls = []
     real = ops.fused_mlp_pool
@@ -82,18 +88,57 @@ def fused_calls(ops, model, pc, train, generator=None):
                     train=train, eps=eps, dtype=dtype)
     ops.fused_mlp_pool = recorder
     try:
-        with torch.no_grad():
-            model.train(train)
-            model(pc, generator=generator) if train else model(pc)
+        run()
     finally:
         ops.fused_mlp_pool = real
     return calls
+
+
+def fused_calls(ops, model, pc, train, generator=None):
+    """The (args of kernel_mlp_pool) of each fused_mlp_pool call of one
+    forward of `model`."""
+    import torch
+
+    def run():
+        with torch.no_grad():
+            model.train(train)
+            model(pc, generator=generator) if train else model(pc)
+    return recorded_fused_calls(ops, run)
+
+
+def semi_step_calls(ops, cfg, dev):
+    """The 8 fused calls (student sa1-sa4, then the teacher's; B=6) of one
+    bfloat16 semi-supervised step, TrainFlags(teacher_bf16=True), 3 labeled
+    + 3 weak scenes (seeds 0 and 1), as chip_smoke.py's phase 15 runs it."""
+    import torch
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.data import make_batch
+    from omni_pq_torch.infer import build_model
+    from omni_pq_torch.train import (OptimizerConfig, TrainFlags, TrainState,
+                                     batch_to_tensors, make_train_step)
+    labeled, weak = (batch_to_tensors(make_batch(
+        np.random.default_rng(i), TRAIN_B, cfg.num_points), dev)
+        for i in (0, 1))
+    model = build_model(dataclasses.replace(
+        cfg, compute_dtype="bfloat16", fused_sa=True), dev, seed=0)
+    state = TrainState(model, OptimizerConfig(), ema=True)
+    step = make_train_step(model, model.cfg, SCANNET_MEAN_SIZES,
+                           TrainFlags(teacher_bf16=True))
+    gen = torch.Generator(dev).manual_seed(0)
+    return recorded_fused_calls(ops, lambda: step(
+        state, labeled, weak, generator=gen, consistency_weight=0.05))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--entries", nargs="+", default=[
+        "fps", "ball_query_group", "ball_query", "fused_mlp"],
+        help="the entry points to time")
+    ap.add_argument("--semi", action="store_true",
+                    help="also the fused calls of a bfloat16 semi-supervised "
+                         "step (B=6, student and teacher)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -149,6 +194,13 @@ def main() -> int:
                 (True, pc[:TRAIN_B], torch.Generator(dev).manual_seed(0)))
             for i, fargs in enumerate(fused_calls(ops, fused, x, train,
                                                   gen))]
+        if dt == "bfloat16" and args.semi:
+            calls["fused_mlp"] += [
+                (f"{who} sa{i % 4 + 1} semi bf16", fargs)
+                for i, (who, fargs) in enumerate(zip(
+                    ["student"] * 4 + ["teacher"] * 4,
+                    semi_step_calls(ops, cfg, dev)))]
+    calls = {k: v for k, v in calls.items() if k in args.entries}
     rows = []
     for entry, entry_calls in calls.items():
         fn = kernel_mlp_pool if entry == "fused_mlp" else getattr(ops, entry)
@@ -166,11 +218,15 @@ def main() -> int:
             end.record()
             end.synchronize()
             events_ms = start.elapsed_time(end) / 10
-            for _ in range(3):
+            for attempt in range(8):  # a window with none is traced again
+                if attempt:
+                    time.sleep(0.2)
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     for _ in range(10):
                         run()
                     torch.cuda.synchronize()
+                    if attempt:
+                        time.sleep(0.05)
                 kern = [e for e in prof.key_averages()
                         if e.device_type == DeviceType.CUDA and e.count
                         and re.search(KERNELS[entry], e.key)]

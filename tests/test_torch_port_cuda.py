@@ -420,6 +420,14 @@ FUSED_BF16_CASES = {
     "k144": (1, 3, 144, 5, (128, 128)),        # segments of 48 rows
     "k128_sa2": (1, 6, 128, 259, (256, 256, 512)),
     "k256_sa2": (1, 2, 256, 259, (256, 256, 512)),  # eval by the pass plan
+    # the last 128-row tile holds 32 rows (the second warpgroup none), and
+    # K = 32 centres span two warps of a warpgroup
+    "k32_partial_tile": (1, 41, 32, 259, (256, 256, 512)),
+    # the last tile's second warpgroup has no rows; a centre spans 4 warps
+    "k64_empty_warpgroup": (3, 13, 64, 3, (128, 128, 256)),
+    # 150 tiles (300 pass items) over 132 SMs: the persistent walk is
+    # partial
+    "k16_many_tiles": (4, 300, 16, 515, (256, 256, 512)),
 }
 BF16_NORM_REL = 2.0 ** -9
 BF16_ELEMENT_OF_MAX = 2.0 ** -5
@@ -476,9 +484,10 @@ def test_fused_mlp_bf16_kernel_matches_plain(dev, case, train):
 
 
 def test_fused_mlp_bf16_wrapper_counts_and_checks(dev):
-    """An eval call is one bfloat16 chained-kernel launch where its tile
-    fits, a train call L bfloat16 passes, L stats and one pool launch; the
-    bfloat16 mode takes K % 16 == 0 only."""
+    """An eval call is one bfloat16 chained-kernel launch where the chain
+    takes its shape (K = 16, 32, 64) and L bfloat16 passes and a pool
+    launch where it does not (K = 48), a train call L bfloat16 passes, L
+    stats and one pool launch; the bfloat16 mode takes K % 16 == 0 only."""
     grouped, ws, ss, bs, rm, rv = _fused_inputs("sa2", dev,
                                                 table=FUSED_BF16_CASES)
     bf16 = torch.bfloat16
@@ -492,6 +501,13 @@ def test_fused_mlp_bf16_wrapper_counts_and_checks(dev):
     assert _kernel_launches(lambda: ops.fused_mlp_pool(
         grouped, ws, ss, bs, train=True, dtype=bf16)) == {
             "mlp_pass_bf16": 3, "mlp_stats": 3, "mlp_pool": 1}
+    # K = 48: a centre does not fit a warpgroup's 64 rows, so an eval call
+    # runs the pass plan with the running statistics
+    g48, ws48, ss48, bs48, rm48, rv48 = _fused_inputs(
+        "k48_tiles", dev, table=FUSED_BF16_CASES)
+    assert _kernel_launches(lambda: ops.fused_mlp_pool(
+        g48, ws48, ss48, bs48, rm48, rv48, train=False, dtype=bf16)) == {
+            "mlp_pass_bf16": 2, "mlp_pool": 1}
     with pytest.raises(ValueError, match="K % 16"):
         ops.fused_mlp_pool(grouped[:, :, :24].contiguous(), ws, ss, bs, rm,
                            rv, train=False, dtype=bf16)

@@ -39,6 +39,7 @@ out: XLA may fuse its d^2 into FMAs there (tests/test_torch_port_ops.py).
 """
 import ctypes
 import functools
+import itertools
 import shutil
 import subprocess
 from pathlib import Path
@@ -68,8 +69,8 @@ def lib(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to build the host harness")
     out = tmp_path_factory.mktemp("kernel_logic") / "harness.so"
-    subprocess.run([gxx, "-O2", "-ffp-contract=off", "-std=c++17", "-shared",
-                    "-fPIC", "-I", str(CSRC), "-o", str(out), str(HARNESS)],
+    subprocess.run([gxx, "-O2", "-ffp-contract=off", "-std=c++20", "-pthread",
+                    "-shared", "-fPIC", "-I", str(CSRC), "-o", str(out), str(HARNESS)],
                    check=True, capture_output=True, text=True)
     h = ctypes.CDLL(str(out))
     h.fps_max_points.restype = ctypes.c_int
@@ -100,6 +101,36 @@ def lib(tmp_path_factory):
     h.mlp_bn_relu_bf16.argtypes = h.mlp_bn_relu.argtypes
     h.mlp_pool_bf16.argtypes = h.mlp_pool.argtypes
     h.round_bf16_n.argtypes = [_F32, ctypes.c_longlong, _F32]
+    _LL = ctypes.c_longlong
+    h.wl_packed_index.argtypes = [ctypes.c_int] * 3
+    h.wl_packed_index.restype = _LL
+    h.wl_stage_offset.argtypes = [ctypes.c_int] * 3
+    h.wl_stage_offset.restype = _LL
+    h.wl_desc_byte.argtypes = [ctypes.c_uint] + [ctypes.c_int] * 3
+    h.wl_desc_byte.restype = _LL
+    h.wl_acc_row_col.argtypes = [ctypes.c_int] * 3 + [_I32]
+    h.wl_afrag_row_k.argtypes = [ctypes.c_int] * 4 + [_I32]
+    for name in ("wl_acc_row_col", "wl_afrag_row_k", "wl_tile_reduce",
+                 "wl_pitches"):
+        getattr(h, name).restype = None
+    h.wl_acc_for_afrag.argtypes = [ctypes.c_int] * 3
+    h.wl_acc_for_afrag.restype = ctypes.c_int
+    h.wl_f32_window.argtypes = [_LL, ctypes.c_int, ctypes.c_int,
+                                ctypes.POINTER(_LL)]
+    h.wl_f32_window.restype = None
+    h.wl_tile_reduce.argtypes = [_F32] + [ctypes.c_int] * 3 + [_F32] * 4
+    h.wl_pass_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    h.wl_pass_smem.restype = _LL
+    h.wl_chain_smem.argtypes = [ctypes.c_int]
+    h.wl_chain_smem.restype = _LL
+    h.wl_chain_stages.argtypes = [ctypes.c_int]
+    h.wl_chain_stages.restype = ctypes.c_int
+
+    h.wl_chain_takes.argtypes = [_I32, ctypes.c_int, ctypes.c_int]
+    h.wl_chain_takes.restype = ctypes.c_int
+    h.wl_pitches.argtypes = [_I32]
+    h.wl_halve8_origin.argtypes = [ctypes.c_int] * 3
+    h.wl_halve8_origin.restype = ctypes.c_int
     return h
 
 
@@ -406,3 +437,217 @@ def test_pool_from_extremes_bf16_is_the_max_of_bn_relu_bitwise(lib, case):
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
     assert not np.signbit(got).any()
     assert (got == _bf16(got)).all()  # bfloat16 values
+
+
+# ---- the bfloat16 fused kernels' layouts and plans (csrc/wgmma_logic.cuh)
+#
+# The kernels (csrc/fused_mlp_bf16.cu) feed wgmma.mma_async from a weight
+# stage in shared memory, read through a no-swizzle descriptor, and an A
+# operand in registers; the layer chain hands each accumulator to the next
+# layer as its A operand. These tests hold the header's maps against
+# models of what wgmma reads and writes (PTX ISA's canonical K-major layout
+# and its m64nNk16 fragment layouts, as the header states them) and against
+# the wrapper's own weight packing; the card tests hold the kernels.
+
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 128), (259, 256), (256, 512),
+                                      (20, 8)])
+def test_packed_weights_are_where_the_descriptor_reads(lib, cin, cout):
+    """The wrapper packs W^T (torch, `_weights_packed`) exactly as
+    packed_weight_index says, a bijection onto the packed array; each stage
+    of 8-row-aligned rows is the contiguous block at packed_stage_offset;
+    and for every (row, k) of a stage the descriptor that make_desc builds,
+    decoded as the hardware reads it, finds the element the packing put
+    there."""
+    from omni_pq_torch.ops.fused_mlp import _weights_packed
+    r = np.random.default_rng(cin + cout)
+    w = torch.from_numpy(r.normal(size=(cin, cout)).astype(np.float32))
+    packed, kp = _weights_packed([w])[0]
+    assert kp % 64 == 0 and kp >= cin
+    wt = torch.zeros(cout, kp, dtype=torch.bfloat16)
+    wt[:, :cin] = w.t()
+    idx = np.array([[lib.wl_packed_index(n, k, cout) for k in range(kp)]
+                    for n in range(cout)])
+    assert np.array_equal(np.sort(idx.ravel()), np.arange(cout * kp))
+    assert torch.equal(packed[torch.from_numpy(idx)], wt)
+    base = 0x1230  # a 16-byte aligned shared address
+    for kc in range(kp // 64):
+        for n0 in sorted({0, (cout // 2) // 8 * 8}):
+            rows = min(256, cout - n0)
+            off = lib.wl_stage_offset(kc, n0, cout)
+            stage = packed[off:off + rows * 64]
+            seen = set()
+            for n in range(rows):
+                for k in range(64):
+                    s, kk = divmod(k, 16)
+                    byte = lib.wl_desc_byte(base, n, kk, s) - base
+                    assert byte % 2 == 0 and 0 <= byte < rows * 128
+                    seen.add(byte)
+                    assert stage[byte // 2] == wt[n0 + n, kc * 64 + k]
+            assert len(seen) == rows * 64
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_accumulator_covers_the_tile_and_is_the_next_a_fragment(lib, n):
+    """The m64nN accumulator map puts every (row, column) of the 64 x n
+    tile in exactly one register of one lane, and the register-A fragment
+    of k step s of the next layer is, register by register, the
+    accumulator that holds the same (row, column 16 s + k)."""
+    out = (ctypes.c_int * 2)()
+    owner = {}
+    for w in range(4):
+        for lane in range(32):
+            for r in range(n // 2):
+                lib.wl_acc_row_col(w, lane, r, out)
+                key = (out[0], out[1])
+                assert key not in owner and 0 <= out[0] < 64 \
+                    and 0 <= out[1] < n
+                owner[key] = (w, lane, r)
+    assert len(owner) == 64 * n
+    for w in range(4):
+        for lane in range(32):
+            for s in range(n // 16):
+                for reg in range(4):
+                    for half in range(2):
+                        lib.wl_afrag_row_k(w, lane, reg, half, out)
+                        row, k = out[0], out[1]
+                        assert owner[(row, 16 * s + k)] == (
+                            w, lane, lib.wl_acc_for_afrag(s, reg, half))
+
+
+def _bf16_values(r, shape, zeros=0.0):
+    v = r.normal(size=shape).astype(ml_dtypes.bfloat16).astype(np.float32)
+    v[r.uniform(size=shape) < zeros] = 0.0
+    return v
+
+
+@pytest.mark.parametrize("case", ["n256_seg16", "n128_seg32", "n256_seg64",
+                                  "n128_seg48_partial", "n256_seg128",
+                                  "zeros_and_signs"])
+def test_epilogue_reductions_match_numpy_in_their_order(lib, case):
+    """The pass kernel's column sums of af and af^2 over a 128-row tile in
+    the kernels' fixed order (each lane's rows g and g + 8, the header's
+    halve8 over g run by 32 lockstep lanes, each result at the column
+    halve8_origin names, then the 8 warps in order) equal a numpy float32
+    model of that order bitwise, and each segment's max and min equal
+    numpy's: every column reduced exactly once."""
+    n, seg, valid, zeros = {
+        "n256_seg16": (256, 16, 128, 0.0), "n128_seg32": (128, 32, 128, 0.0),
+        "n256_seg64": (256, 64, 128, 0.0),
+        "n128_seg48_partial": (128, 48, 96, 0.0),
+        "n256_seg128": (256, 128, 128, 0.0),
+        "zeros_and_signs": (128, 16, 64, 0.5)}[case]
+    r = np.random.default_rng(len(case))
+    af = _bf16_values(r, (128, n), zeros) * np.float32(8.0)
+    af[valid:] = 0.0  # rows past the tile's valid ones read as 0
+    s1, s2 = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    mx = np.zeros((valid // seg, n), np.float32)
+    mn = np.zeros_like(mx)
+    ptr = lambda a: a.ctypes.data_as(_F32)  # noqa: E731
+    afc = np.ascontiguousarray(af)
+    lib.wl_tile_reduce(ptr(afc), n, seg, valid, ptr(s1), ptr(s2), ptr(mx),
+                       ptr(mn))
+    # numpy: per warp, x_g = af[16w+g] + af[16w+g+8] for g = 0..7, the
+    # butterfly ((x0+x1)+(x2+x3))+((x4+x5)+(x6+x7)), then warps 0..7 in turn
+    t = af.reshape(8, 2, 8, n)  # (warp, row half, g, column)
+    for got, x in ((s1, t[:, 0] + t[:, 1]),
+                   (s2, t[:, 0] * t[:, 0] + t[:, 1] * t[:, 1])):
+        x = x[:, 0::2] + x[:, 1::2]
+        x = x[:, 0::2] + x[:, 1::2]
+        x = x[:, 0] + x[:, 1]
+        want = x[0]
+        for w in range(1, 8):
+            want = want + x[w]
+        assert want.dtype == np.float32
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    segs = af[:valid].reshape(valid // seg, seg, n)
+    assert np.array_equal(mx, segs.max(1)) and np.array_equal(mn, segs.min(1))
+
+
+# (K, widths [C0, C1, ...], whether the eval chain takes them): the main
+# path's fused calls and the card tests' bfloat16 cases
+PLAN_SHAPES = {
+    "sa1": (64, [3, 128, 128, 256], True),
+    "sa2": (32, [259, 256, 256, 512], True),
+    "sa3_sa4": (16, [515, 256, 256, 512], True),
+    "k16_one_layer": (16, [20, 128], True),
+    "k48": (48, [36, 128, 256], False),
+    "k144": (144, [5, 128, 128], False),
+    "k128_sa2": (128, [259, 256, 256, 512], False),
+    "k256_sa2": (256, [259, 256, 256, 512], False),
+    "wide_middle": (32, [64, 512, 256], False),
+    "too_many_channels": (16, [515, 256, 256, 256, 512], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_SHAPES))
+def test_plans_fit_shared_memory(lib, case):
+    """Every pass of the pass plan (float32 rows in pass 0, bfloat16 a_j
+    after it) and the eval chain (its ring as deep as fits, 3 to 8 stages)
+    stay within the card's 232 448 bytes a block; the chain takes exactly
+    the shapes whose centres fit a warpgroup's 64 rows, whose middle layers
+    fit the registers and whose BN vectors fit their 1024 channels."""
+    K, chans, takes = PLAN_SHAPES[case]
+    for j, cin in enumerate(chans[:-1]):
+        assert lib.wl_pass_smem(int(j == 0), cin) <= SMEM_LIMIT
+    c = (ctypes.c_int * len(chans))(*chans)
+    assert bool(lib.wl_chain_takes(c, len(chans) - 1, K)) == takes
+    assert lib.wl_chain_smem(chans[0]) <= SMEM_LIMIT
+    assert 3 <= lib.wl_chain_stages(chans[0]) <= 8
+
+
+@pytest.mark.parametrize("cin", [3, 20, 36, 259, 515])
+def test_f32_windows_are_aligned_and_cover_the_rows(lib, cin):
+    """A float32 row's 64-k window is a legal bulk copy (16-byte aligned at
+    both ends), fits the stage's 272-byte row, starts at most 3 floats
+    before the row's k0, covers k0 .. min(k0 + 64, cin) - 1, and never
+    reaches past the last row of a tile whose row count is a multiple of
+    16."""
+    pitch = (ctypes.c_int * 2)()
+    lib.wl_pitches(pitch)
+    out = (ctypes.c_longlong * 3)()
+    rows = 32
+    for row in range(rows):
+        for k0 in range(0, cin, 64):
+            lib.wl_f32_window(row, cin, k0, out)
+            begin, nbytes, off = out
+            first = (row * cin + k0) * 4
+            last = (row * cin + min(k0 + 64, cin)) * 4
+            assert begin % 16 == 0 and nbytes % 16 == 0
+            assert nbytes <= 4 * pitch[1] and 0 <= off <= 3
+            assert begin + 4 * off == first and begin + nbytes >= last
+            assert begin + nbytes <= rows * cin * 4
+
+
+def test_shared_reads_spread_over_the_banks(lib):
+    """wgmma's reads of a core matrix (8 rows of 16 bytes) cover the 32
+    banks once; a warp's 4-byte A-fragment loads from a bfloat16 stage
+    (rows g, k pair 2q) hit 32 distinct banks; from a float32 stage
+    (rows g, k 2q, every choice of the rows' window offsets 0-3) at most 3
+    lanes share a bank (the layer-0 loads: 8 a k step and thread)."""
+    pitch = (ctypes.c_int * 2)()
+    lib.wl_pitches(pitch)
+    banks = {(lib.wl_desc_byte(0, n, k, 0) // 4) % 32
+             for n in range(8) for k in range(0, 8, 2)}
+    assert banks == set(range(32))
+    bf16 = [((g * pitch[0] + 2 * q) * 2 // 4) % 32
+            for g in range(8) for q in range(4)]
+    assert len(set(bf16)) == 32
+    worst = 0
+    for offs in itertools.product(range(4), repeat=8):
+        f32 = np.bincount([(g * pitch[1] + offs[g] + 2 * q) % 32
+                           for g in range(8) for q in range(4)])
+        worst = max(worst, int(f32.max()))
+    assert worst <= 3
+
+
+@pytest.mark.parametrize("N", [16, 32, 64])
+def test_halving_origins_cover_every_index_once(lib, N):
+    """Over the 8 lanes of a quad column, halve8_origin(k, g, N) for
+    k < N / 8 names each of the N indices exactly once: every value is
+    reduced and written by one lane."""
+    seen = sorted(lib.wl_halve8_origin(k, g, N)
+                  for g in range(8) for k in range(N // 8))
+    assert seen == list(range(N))

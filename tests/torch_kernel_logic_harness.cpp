@@ -8,12 +8,16 @@
 // own (the kernels run the same decisions as warp-wide ballots and
 // butterflies); what they share with the kernels is the headers.
 // tests/test_torch_port_kernel_logic.py builds it with
-//   g++ -O2 -ffp-contract=off -std=c++17 -shared -fPIC -I omni_pq_torch/csrc
+//   g++ -O2 -ffp-contract=off -std=c++20 -pthread -shared -fPIC -I omni_pq_torch/csrc
 // and holds it against the plain versions and the JAX package's oracles.
+#include <algorithm>
+#include <barrier>
+#include <thread>
 #include <vector>
 
 #include "mlp_logic.cuh"
 #include "point_logic.cuh"
+#include "wgmma_logic.cuh"
 
 using namespace point_logic;
 
@@ -247,6 +251,181 @@ void mlp_pool_bf16(const float* a, int centres, int K, int C,
 // mlp_logic::round_bf16 of each of n elements
 void round_bf16_n(const float* a, long long n, float* out) {
   for (long long i = 0; i < n; ++i) out[i] = mlp_logic::round_bf16(a[i]);
+}
+
+// ---- csrc/wgmma_logic.cuh: the bfloat16 fused kernels' layouts and plans
+
+long long wl_packed_index(int n, int k, int cout) {
+  return wgmma_logic::packed_weight_index(n, k, cout);
+}
+
+long long wl_stage_offset(int kc, int n0, int cout) {
+  return wgmma_logic::packed_stage_offset(kc, n0, cout);
+}
+
+// the byte wgmma reads for (n, k) of k step s, from the descriptor that
+// make_desc builds for a stage at shared address addr: its start, leading
+// and stride byte offsets decoded as the hardware reads them
+long long wl_desc_byte(unsigned addr, int n, int k, int s) {
+  const uint64_t d = wgmma_logic::make_desc(addr) +
+                     ((s * 2 * wgmma_logic::kLBO) >> 4);
+  const long long start = (d & 0x3FFF) << 4, lbo = ((d >> 16) & 0x3FFF) << 4,
+                  sbo = ((d >> 32) & 0x3FFF) << 4;
+  if ((d >> 62) != 0) return -1;  // a swizzle mode: not this layout
+  return start + (n / 8) * sbo + (k / 8) * lbo + (n % 8) * 16 + (k % 8) * 2;
+}
+
+// PTX's m64nN float32 accumulator layout: (row, column) of D register r of
+// lane `lane` of warp w (of the warpgroup's 4)
+void wl_acc_row_col(int w, int lane, int r, int* out2) {
+  out2[0] = 16 * w + lane / 4 + 8 * ((r % 4) / 2);
+  out2[1] = 8 * (r / 4) + 2 * (lane % 4) + r % 2;
+}
+
+// PTX's register-A fragment of a k step of 16 (bfloat16): (row, k) of half
+// `half` of A register `reg`
+void wl_afrag_row_k(int w, int lane, int reg, int half, int* out2) {
+  out2[0] = 16 * w + lane / 4 + 8 * (reg % 2);
+  out2[1] = 8 * (reg / 2) + 2 * (lane % 4) + half;
+}
+
+int wl_acc_for_afrag(int s, int reg, int half) {
+  return wgmma_logic::acc_for_afrag(s, reg, half);
+}
+
+void wl_f32_window(long long row, int cin, int k0, long long* out3) {
+  long long begin;
+  int bytes, off;
+  wgmma_logic::f32_window(row, cin, k0, &begin, &bytes, &off);
+  out3[0] = begin;
+  out3[1] = bytes;
+  out3[2] = off;
+}
+
+}  // extern "C"
+
+namespace {
+
+// The pass kernel's epilogue over a 128-row tile af (row-major, n = N * 4
+// columns), lane by lane as the 8 consumer warps hold it: each lane's two
+// rows g and g + 8 of its columns 8 i + 2 q (+1) (sums a + b, squares
+// a*a + b*b, extremes), wgmma_logic::halve8 over the quad column run by 32
+// threads in lockstep (a barrier where the card shuffles), each result
+// stored at the column halve8_origin gives, then the warps' partials added
+// in order, and each segment's warps' extremes combined. s1, s2: n; mx,
+// mn: (valid / seg, n).
+template <int N>
+void tile_reduce(const float* af, int seg, int valid, float* s1, float* s2,
+                 float* mx, float* mn) {
+  constexpr int n = 4 * N, warps = wgmma_logic::kConsumerWarps;
+  std::vector<float> p1(warps * n), p2(warps * n), pmx(warps * n),
+      pmn(warps * n);
+  float shared[32];
+  std::barrier sync(32);
+  std::vector<std::thread> lanes;
+  for (int lane = 0; lane < 32; ++lane)
+    lanes.emplace_back([&, lane] {
+      const int g = lane / 4, q = lane % 4;
+      auto xchg = [&](float v, int m) {
+        shared[lane] = v;
+        sync.arrive_and_wait();
+        const float r = shared[lane ^ m];
+        sync.arrive_and_wait();
+        return r;
+      };
+      auto add = [](float a, float b) { return a + b; };
+      auto hi = [](float a, float b) { return fmaxf(a, b); };
+      auto lo = [](float a, float b) { return fminf(a, b); };
+      for (int w = 0; w < warps; ++w) {
+        float v1[N], v2[N], e[4][N / 2];  // e: max lo/hi, min lo/hi
+        for (int i = 0; i < n / 8; ++i)
+          for (int c2 = 0; c2 < 2; ++c2) {
+            const int col = 8 * i + 2 * q + c2;
+            const float a = af[(16 * w + g) * n + col],
+                        b = af[(16 * w + g + 8) * n + col];
+            v1[2 * i + c2] = a + b;
+            v2[2 * i + c2] = a * a + b * b;
+            e[c2][i] = fmaxf(a, b);
+            e[2 + c2][i] = fminf(a, b);
+          }
+        wgmma_logic::halve8<N>(v1, g, add, xchg);
+        wgmma_logic::halve8<N>(v2, g, add, xchg);
+        for (int x = 0; x < 4; ++x)
+          if (x < 2)
+            wgmma_logic::halve8<N / 2>(e[x], g, hi, xchg);
+          else
+            wgmma_logic::halve8<N / 2>(e[x], g, lo, xchg);
+        for (int k = 0; k < N / 8; ++k) {
+          const int o = wgmma_logic::halve8_origin(k, g, N);
+          const int col = 8 * (o / 2) + 2 * q + o % 2;
+          p1[w * n + col] = v1[k];
+          p2[w * n + col] = v2[k];
+        }
+        for (int k = 0; k < N / 16; ++k) {
+          const int col = 8 * wgmma_logic::halve8_origin(k, g, N / 2) + 2 * q;
+          pmx[w * n + col] = e[0][k];
+          pmx[w * n + col + 1] = e[1][k];
+          pmn[w * n + col] = e[2][k];
+          pmn[w * n + col + 1] = e[3][k];
+        }
+      }
+    });
+  for (auto& t : lanes) t.join();
+  for (int c = 0; c < n; ++c) {
+    float a = p1[c], b = p2[c];
+    for (int w = 1; w < warps; ++w) {
+      a = a + p1[w * n + c];
+      b = b + p2[w * n + c];
+    }
+    s1[c] = a;
+    s2[c] = b;
+  }
+  const int wps = seg / 16;
+  for (int sg = 0; sg < valid / seg; ++sg)
+    for (int c = 0; c < n; ++c) {
+      float a = pmx[sg * wps * n + c], b = pmn[sg * wps * n + c];
+      for (int w = 1; w < wps; ++w) {
+        a = fmaxf(a, pmx[(sg * wps + w) * n + c]);
+        b = fminf(b, pmn[(sg * wps + w) * n + c]);
+      }
+      mx[sg * n + c] = a;
+      mn[sg * n + c] = b;
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// tile_reduce at n = 128 or 256 columns (the pass kernel's items)
+void wl_tile_reduce(const float* af, int n, int seg, int valid, float* s1,
+                    float* s2, float* mx, float* mn) {
+  if (n == 256)
+    tile_reduce<64>(af, seg, valid, s1, s2, mx, mn);
+  else
+    tile_reduce<32>(af, seg, valid, s1, s2, mx, mn);
+}
+
+long long wl_pass_smem(int f32_src, int cin) {
+  return wgmma_logic::pass_smem_bytes(f32_src != 0, cin);
+}
+
+long long wl_chain_smem(int c0) { return wgmma_logic::chain_smem_bytes(c0); }
+
+int wl_chain_stages(int c0) { return wgmma_logic::chain_stages(c0); }
+
+int wl_chain_takes(const int* chans, int L, int K) {
+  return wgmma_logic::chain_takes(chans, L, K);
+}
+
+int wl_halve8_origin(int k, int g, int N) {
+  return wgmma_logic::halve8_origin(k, g, N);
+}
+
+// (bfloat16 stage pitch, float32 stage pitch, elements), the shared rows
+void wl_pitches(int* out2) {
+  out2[0] = wgmma_logic::kPitchBf16;
+  out2[1] = wgmma_logic::kPitchF32;
 }
 
 }  // extern "C"
