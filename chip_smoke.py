@@ -113,6 +113,21 @@ when every phase passed:
  16. the float32 fused eval mode at K = 128 and 200 with sa2's widths,
      where a chained tile does not fit in shared memory (the pass plan with
      the running statistics): within 1e-4 of the plain version.
+ 17. the entry points a user runs, at full ModelConfig() width, on a fake
+     ScanNet tree (tests/torch_fake_data.py: 6 train and 3 val scans of
+     50 000 vertices) written under build/: the ScanNet loader's host ms a
+     batch; `python -m omni_pq_torch.cli.train`'s main() with --ema
+     --gamma_mixture (bfloat16, the default), B=3, 2 epochs, in-loop eval
+     and checkpoints every epoch, one step profiled; every semi step 12 FPS
+     and 10 ball-query-group launches and every eval forward 6 and 5
+     (record_group_calls, the kernels' counters set to 0 before each CLI
+     and read after), the checkpoints the policy calls for, every metric
+     finite; the CLI step's wall and loader-wait ms, the profiled step's
+     busy share beside phases 12 and 15, the eval pass's seconds, peak
+     memory; cli.eval on ema_best (the policy's, else the epoch-2 file
+     tagged so) equal to the in-loop teacher's F1 and loss; a resume from
+     epoch 1 (epoch 2 again, within CLI_RESUME_REL, counts carried on);
+     cli.infer on a .ply of one scan.
 The second-last line is the kernels JSON, the last the device JSON. Details
 go to chiprun_out/chip_smoke.json, chiprun_out/chip_smoke_profile.txt,
 chiprun_out/chip_smoke_train_profile.txt,
@@ -212,6 +227,19 @@ SEMI_STATS = {
     "quad_normal_consistency_loss_sum", "quad_size_consistency_loss_sum",
     "quad_consistency_loss_sum", "weighted_consistency_loss"}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+# phase 17: the fake ScanNet tree (ScanNet's preprocessing cap of 50 000
+# vertices a scan, above the 40 000 points the loader samples)
+CLI_TRAIN, CLI_VAL, CLI_VERTS = 6, 3, 50000
+# the eval CLI on ema_best against the in-loop pass of its epoch: the same
+# weights and the same val clouds, so equal but for the order of a
+# floating-point reduction, should the card's libraries pick another
+CLI_EVAL_REL = 1e-5
+# the resumed epoch 2 against the first run's: the loaders draw the scenes'
+# 40 000 points and the weak batches again, and dropout and the gamma
+# criterion draw from a generator in another state, so only a gross bound
+# (a lost or doubled loss term); the resume itself is held by the step and
+# optimiser counts of its last checkpoint
+CLI_RESUME_REL = 0.25
 
 
 def check(cond, msg):
@@ -1513,6 +1541,311 @@ def bf16_semi_phase(cfg, dev, card, sup_stat_names):
                 ), frows
 
 
+def load_fake_data():
+    """tests/torch_fake_data.py (numpy only), by its path: a `tests`
+    package installed elsewhere cannot shadow it."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_fake_data", os.path.join(ROOT, "tests", "torch_fake_data.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def cli_phase(card, report):
+    """Phase 17: the user's path through the entry points on a fake ScanNet
+    tree: the train CLI (semi-supervised, bf16 default, in-loop eval,
+    checkpoints), the eval CLI on ema_best, a resume, and the infer CLI on
+    a .ply."""
+    import shutil
+    import torch
+    from omni_pq_torch import native, ops
+    from omni_pq_torch import train as train_pkg
+    from omni_pq_torch.cli import eval as eval_cli
+    from omni_pq_torch.cli import infer as infer_cli
+    from omni_pq_torch.cli import train as train_cli
+    from omni_pq_torch.cli.args import parse_option
+    from omni_pq_torch.data import Loader, ScannetDetectionDataset
+    from omni_pq_torch.infer import build_model
+    from omni_pq_torch.train import (OptimizerConfig, TrainState,
+                                     load_checkpoint, save_checkpoint)
+    from omni_pq_torch.utils.viz import write_ply_points
+
+    dev = torch.device("cuda", 0)
+    work = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "scannet")
+    scans = [f"scene{i:04d}_00" for i in range(CLI_TRAIN + CLI_VAL)]
+    t0 = time.perf_counter()
+    load_fake_data().write_fake_scannet(data, scans,
+                                        np.random.default_rng(SEED),
+                                        n_verts=CLI_VERTS)
+    with open(os.path.join(data, "meta_data/scannetv2_train.txt"), "w") as f:
+        f.write("\n".join(scans[:CLI_TRAIN]))
+    with open(os.path.join(data, "meta_data/scannetv2_val.txt"), "w") as f:
+        f.write("\n".join(scans[CLI_TRAIN:]))
+    print(f"[cli] fake ScanNet tree: {CLI_TRAIN} train + {CLI_VAL} val scans "
+          f"of {CLI_VERTS} vertices, written in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # the native loader core is built at first use (g++): not a batch's time
+    t0 = time.perf_counter()
+    native.get_lib()
+    print(f"[cli] native loader core ready in {time.perf_counter() - t0:.2f}"
+          " s (g++ at first use, or the checkout's earlier build)")
+    # the loader alone, on the host: a batch of the train split, no prefetch
+    loader = Loader(ScannetDetectionDataset(data, "train", seed=SEED),
+                    TRAIN_B, seed=SEED)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    loader_ms = (time.perf_counter() - t0) * 1e3 / n
+    print(f"[cli] ScanNet loader: {loader_ms:.1f} ms of host time a batch of "
+          f"{TRAIN_B} (40 000 of {CLI_VERTS} points, two views, votes, "
+          f"quads; one thread, no prefetch)")
+
+    # every fps / ball_query_group call is counted by the train step or
+    # the eval forward that made it (record_group_calls), and the kernels'
+    # own counters must add up to those calls
+    counted = {"fps": ops.fps, "ball_query_group": ops.ball_query_group,
+               "fused_mlp_pool": ops.fused_mlp_pool}
+    records, calls = [], {"train_step": [], "eval_forward": []}
+    real = {"make_train_step": train_pkg.make_train_step,
+            "make_eval_step": train_pkg.make_eval_step,
+            "evaluate": train_cli.evaluate}
+    eval_s = []
+
+    def counting(kind, fn):
+        def call(*a, **kw):
+            n0 = len(records)
+            out = fn(*a, **kw)
+            calls[kind].append({k: sum(r[0] == k for r in records[n0:])
+                                for k in ("fps", "ball_query_group")})
+            del records[n0:]  # counts only: free the recorded tensors
+            return out
+        return call
+
+    def timed_evaluate(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        f1 = real["evaluate"](*a, **kw)
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t)
+        return f1
+
+    train_pkg.make_train_step = lambda *a, **kw: counting(
+        "train_step", real["make_train_step"](*a, **kw))
+    train_pkg.make_eval_step = lambda: counting(
+        "eval_forward", real["make_eval_step"]())
+    train_cli.evaluate = eval_cli.evaluate = timed_evaluate
+    restore_ops = record_group_calls(ops, records)
+
+    def drive(what, fn):
+        """fn() with the counters at 0 just before, read just after; every
+        launch made inside a counted train step or eval forward."""
+        for kind in calls:
+            calls[kind].clear()
+        reset_launch_counts(counted)
+        out = fn()
+        torch.cuda.synchronize()
+        launches = fused_launch_counts(counted)
+        seen = {k: sum(c[k] for kind in calls for c in calls[kind])
+                for k in ("fps", "ball_query_group")}
+        check(launches["fused_mlp_pool"] == 0 and all(
+            launches[k] == seen[k] for k in seen), f"{what}: launches "
+            f"{launches}, counted in steps and eval forwards {seen}")
+        for kind, want in (("train_step", {"fps": 12, "ball_query_group": 10}),
+                           ("eval_forward", {"fps": 6,
+                                             "ball_query_group": 5})):
+            check(all(c == want for c in calls[kind]), f"{what}: {kind} "
+                  f"launches {calls[kind]}, expected {want} each")
+        return out, launches, {k: len(v) for k, v in calls.items()}
+
+    run = os.path.join(work, "run")
+    model_argv = ["--data_root", data]
+    train_argv = model_argv + [
+        "--ema", "--gamma_mixture", "--batch_size", str(TRAIN_B),
+        "--max_epoch", "2", "--end_proportion", "1.0", "--val_freq", "1",
+        "--save_freq", "1", "--print_freq", "1"]
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        (max_f1, max_ema_f1), launches, n_calls = drive(
+            "train CLI", lambda: train_cli.main(
+                train_argv + ["--log_dir", run, "--profile", "1"]))
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps = 2 * (CLI_TRAIN // TRAIN_B)
+        check(n_calls == {"train_step": steps, "eval_forward": 4},
+              f"train CLI: {n_calls}, expected {steps} semi steps and 4 "
+              "eval forwards (student and teacher, 2 epochs, one val batch)")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        bad = [(r["step"], k) for r in recs for k, v in r.items()
+               if not np.isfinite(v)]
+        check(not bad, f"train CLI: non-finite metrics {bad[:5]}")
+        train_recs = [r for r in recs if "train/total_loss" in r]
+        evals = [r for r in recs if "eval/quad_f1" in r]
+        check([r["eval/epoch"] for r in evals] == [1, 2], "train CLI: "
+              f"in-loop evals at epochs {[r['eval/epoch'] for r in evals]}")
+        for tag in ("student", "ema"):
+            got = [r["step"] for r in recs if f"eval_{tag}/loss" in r]
+            check(got == [1, 2], f"train CLI: eval_{tag}/ loss means at "
+                  f"epochs {got}, expected [1, 2]")
+        # the checkpoint policy: periodic 1 and 2, last, best when the
+        # student's F1 rose above 0, ema_best when the teacher's above 0.2
+        want = {"1", "2", "last"}
+        if max(r["eval/quad_f1"] for r in evals) > 0:
+            want.add("best")
+        if max(r["eval/ema_quad_f1"] for r in evals) > 0.2:
+            want.add("ema_best")
+        got = {f[len("ckpt_epoch_"):-len(".pth")] for f in os.listdir(run)
+               if f.endswith(".pth")}
+        check(got == want, f"train CLI: checkpoints {sorted(got)}, the "
+              f"policy calls for {sorted(want)}")
+        with open(os.path.join(run, "profile", "summary.json")) as f:
+            prof = json.load(f)
+        step_ms = [r["train/step_ms"] for r in train_recs]
+        data_ms = [r["train/data_ms"] for r in train_recs]
+        # the profiler slows the host: its device time over the wall of
+        # the steps that were neither warm-up nor profiled, too
+        steady_ms = float(np.mean(step_ms[2:]))
+        phase12 = report["semi"]["profile"]["unfused"]
+        phase15 = report["bf16_semi"]["profile"]["unfused"]
+        print(f"[cli] train CLI: {steps} semi steps (bf16, --ema "
+              f"--gamma_mixture, B={TRAIN_B}+{TRAIN_B}) and 4 eval forwards "
+              f"in {train_s:.1f} s; launches {launches}: every semi step 12 "
+              f"FPS and 10 ball-query-group, every eval forward 6 and 5; "
+              f"checkpoints {sorted(got)}; in-loop quad F1 "
+              f"{[r['eval/quad_f1'] for r in evals]}, teacher "
+              f"{[r['eval/ema_quad_f1'] for r in evals]}; total_loss "
+              f"{[round(r['train/total_loss'], 4) for r in train_recs]}")
+        print(f"[cli] CLI step wall ms {[round(x, 1) for x in step_ms]} "
+              f"(step 1 warms up; step 2 is profiled), of which waiting for "
+              f"the loaders {[round(x, 1) for x in data_ms]} ms [{card}]")
+        print(f"[cli] profiled CLI step (PrefetchLoader feeding, wait "
+              f"included): device kernel time {prof['device_ms']:.3f} ms in "
+              f"{prof['wall_ms']:.3f} ms profiled, busy share "
+              f"{prof['busy_share']:.3f}; over the unprofiled steps' "
+              f"{steady_ms:.1f} ms {prof['device_ms'] / steady_ms:.3f}, "
+              f"beside phase 12's float32 step {phase12['busy_share']:.3f} "
+              f"and phase 15's bf16 step {phase15['busy_share']:.3f} "
+              f"(unprofiled wall) [{card}]")
+        train_eval_s = list(eval_s)
+        print(f"[cli] in-loop eval pass: "
+              f"{[round(s, 3) for s in train_eval_s]} s, "
+              f"one val batch of {CLI_VAL} each; peak memory "
+              f"{peak / 2**30:.2f} GiB [{card}]")
+
+        # the eval CLI on ema_best: the teacher of its epoch, the same val
+        # clouds as the in-loop pass (each pass draws them from the seed)
+        ema_path = os.path.join(run, "ckpt_epoch_ema_best.pth")
+        ema_epoch = next((r["eval/epoch"] for r in evals
+                          if r["eval/ema_quad_f1"] == max_ema_f1), None)
+        if "ema_best" not in got:
+            # the policy wrote none (the teacher's F1 stayed at or below
+            # 0.2): the epoch-2 file, tagged ema_best
+            ema_epoch = 2
+            state = TrainState(build_model(train_cli.make_model_config(
+                parse_option(train_argv)), dev), OptimizerConfig(), ema=True)
+            load_checkpoint(os.path.join(run, "ckpt_epoch_2.pth"), state)
+            ema_path = save_checkpoint(os.path.join(work, "ema_best"),
+                                       "ema_best", state, 2)
+            del state
+        eval_dir = os.path.join(work, "eval")
+        f1, _, n_calls = drive("eval CLI", lambda: eval_cli.main(
+            model_argv + ["--log_dir", eval_dir, "--checkpoint_path",
+                          ema_path]))
+        check(n_calls == {"train_step": 0, "eval_forward": 1},
+              f"eval CLI: {n_calls}")
+        with open(os.path.join(eval_dir, "metrics.jsonl")) as f:
+            erecs = [json.loads(line) for line in f]
+        got_loss = next(r["eval_ema/loss"] for r in erecs
+                        if "eval_ema/loss" in r)
+        in_loop = next(r for r in recs if r["step"] == ema_epoch
+                       and "eval_ema/loss" in r)["eval_ema/loss"]
+        want_f1 = next(r["eval/ema_quad_f1"] for r in evals
+                       if r["eval/epoch"] == ema_epoch)
+        loss_gap = abs(got_loss - in_loop) / abs(in_loop)
+        check(np.isfinite(f1) and f1 == want_f1 and loss_gap <= CLI_EVAL_REL,
+              f"eval CLI on ema_best: F1 {f1} (in-loop teacher of epoch "
+              f"{ema_epoch}: {want_f1}), eval_ema/loss {got_loss} vs "
+              f"{in_loop} (relative {loss_gap:.2e}, bound {CLI_EVAL_REL})")
+        print(f"[cli] eval CLI on ema_best ("
+              f"{'the policy' if 'ema_best' in got else 'epoch 2 tagged'}"
+              f", the teacher of epoch {ema_epoch}): F1 {f1} equal to the "
+              f"in-loop teacher's; eval_ema/loss {got_loss:.6f} vs in-loop "
+              f"{in_loop:.6f}, relative {loss_gap:.2e} (bound "
+              f"{CLI_EVAL_REL})")
+
+        # resume from epoch 1: epoch 2 runs again, the counts carry on
+        rerun = os.path.join(work, "resumed")
+        _, _, n_calls = drive("resumed train CLI", lambda: train_cli.main(
+            train_argv + ["--log_dir", rerun, "--checkpoint_path",
+                          os.path.join(run, "ckpt_epoch_1.pth")]))
+        half = steps // 2
+        check(n_calls == {"train_step": half, "eval_forward": 2},
+              f"resumed train CLI: {n_calls}")
+        with open(os.path.join(rerun, "metrics.jsonl")) as f:
+            rrecs = [json.loads(line) for line in f]
+        resumed = [r["train/total_loss"] for r in rrecs
+                   if "train/total_loss" in r]
+        first = [r["train/total_loss"] for r in train_recs][half:]
+        gap = abs(np.mean(resumed) - np.mean(first)) / abs(np.mean(first))
+        last = torch.load(os.path.join(rerun, "ckpt_epoch_last.pth"),
+                          map_location="cpu", weights_only=True)
+        check(len(resumed) == half and gap <= CLI_RESUME_REL
+              and last["step"] == steps
+              and last["optimizer"]["count"] == steps,
+              f"resume: epoch-2 total_loss {resumed} vs {first} (relative "
+              f"{gap:.3f}, bound {CLI_RESUME_REL}), last step "
+              f"{last['step']}, optimiser count "
+              f"{last['optimizer']['count']}, expected {steps}")
+        print(f"[cli] resume from ckpt_epoch_1.pth: epoch 2 again, "
+              f"total_loss {[round(x, 4) for x in resumed]} against the "
+              f"first run's {[round(x, 4) for x in first]} (mean relative "
+              f"gap {gap:.3f}, bound {CLI_RESUME_REL}: the scenes are drawn "
+              f"again, and the card's steps are not bitwise repeatable); "
+              f"the last checkpoint's step and optimiser count {steps}")
+        del last
+
+        # infer on a .ply written from one scan
+        verts = np.load(os.path.join(
+            data, "scannet_train_detection_data", f"{scans[0]}_vert.npy"))
+        ply = os.path.join(work, "scene.ply")
+        write_ply_points(verts[:, :3], ply, verts[:, 3:6])
+        reset_launch_counts(counted)  # one forward, outside the counted
+        quads, objects = infer_cli.main([
+            "--checkpoint_path", os.path.join(run, "ckpt_epoch_last.pth"),
+            "--input", ply, "--output", os.path.join(work, "det.json"),
+            "--dump_ply", os.path.join(work, "ply")])
+        torch.cuda.synchronize()
+        launches = fused_launch_counts(counted)
+        check(launches == {"fps": 6, "ball_query_group": 5,
+                           "fused_mlp_pool": 0},
+              f"infer CLI: launches {launches}")
+        with open(os.path.join(work, "det.json")) as f:
+            det = json.load(f)
+        check(det == {"quads": quads, "objects": objects} and all(
+            np.isfinite(q["center"] + q["normal"] + q["size"]).all()
+            for q in quads), "infer CLI: detections not as returned, or "
+            "not finite")
+        print(f"[cli] infer CLI on a .ply of {len(verts)} points: "
+              f"{len(quads)} quads, {len(objects)} objects above 0.5, "
+              f"launches {launches}")
+    finally:
+        restore_ops()
+        train_pkg.make_train_step = real["make_train_step"]
+        train_pkg.make_eval_step = real["make_eval_step"]
+        train_cli.evaluate = eval_cli.evaluate = real["evaluate"]
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(loader_host_ms=loader_ms, step_ms=step_ms, data_ms=data_ms,
+                busy_share_unprofiled=prof["device_ms"] / steady_ms,
+                profile=prof, eval_pass_s=train_eval_s, peak_mem_bytes=peak,
+                train_s=train_s, checkpoints=sorted(got),
+                eval_cli_f1=f1, eval_cli_loss_gap=loss_gap,
+                resume_gap=gap, quads=len(quads))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1833,6 +2166,9 @@ def main() -> int:
 
     # -- 16. the fused eval mode at K = 128 and 200 (sa2's widths)
     report["repair"] = repair_phase(card)
+
+    # -- 17. the entry points: train CLI, eval CLI, resume, infer on a .ply
+    report["cli"] = cli_phase(card, report)
     report["kernel_rows"] = rows
     # a time below its bound means a miscounted bound or a broken timer
     for kname, krows in rows.items():

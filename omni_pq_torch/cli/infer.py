@@ -1,19 +1,23 @@
-"""Inference driver: one checkpoint + one point cloud -> layout quads +
-object boxes as JSON (the port of `omni_pq_tpu/cli/infer.py`).
+"""Inference driver: one checkpoint + one point cloud (.npy or .ply) ->
+layout quads + object boxes as JSON, and with --dump_ply the input cloud
+and the confident quads as PLY files (the port of
+`omni_pq_tpu/cli/infer.py`).
 
 The checkpoint is a `.pth` holding a reference-layout state_dict, either
-bare or under "model" as the reference saves it (a DDP 'module.' prefix is
-stripped). Runs on the card unless `--device cpu` is given. The model
-computes in bfloat16, as the JAX infer CLI always does (its parameters stay
-float32); `--bf16` is accepted and changes nothing.
+bare or under "model" as the reference and the train CLI save it (a DDP
+'module.' prefix is stripped); a file tagged 'ema_best' gives its teacher
+(`ema_model`), as the JAX CLI does. Runs on the card unless `--device cpu`
+is given. The model computes in bfloat16, as the JAX infer CLI always does
+(its parameters stay float32); `--bf16` is accepted and changes nothing.
 
 Run:  python -m omni_pq_torch.cli.infer --checkpoint_path best.pth \
-          --input scene.npy --output out.json
+          --input scene.ply --output out.json [--dump_ply out_dir]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 
@@ -21,15 +25,21 @@ import numpy as np
 def load_cloud(path: str) -> np.ndarray:
     if path.endswith(".npy"):
         return np.load(path)[:, :3].astype(np.float32)
-    raise ValueError(f"unsupported input {path} (expected .npy)")
+    if path.endswith(".ply"):
+        from ..data.preprocess import read_ply_xyzrgb
+        return read_ply_xyzrgb(path)[:, :3].astype(np.float32)
+    raise ValueError(f"unsupported input {path} (expected .npy or .ply)")
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--checkpoint_path", required=True,
                         help=".pth with a reference-layout state_dict")
-    parser.add_argument("--input", required=True, help=".npy cloud (N, 3+)")
+    parser.add_argument("--input", required=True,
+                        help=".npy (N, 3+) or .ply cloud")
     parser.add_argument("--output", default="detections.json")
+    parser.add_argument("--dump_ply", default=None,
+                        help="directory for input.ply and the quads' PLY")
     parser.add_argument("--num_point", type=int, default=40000)
     parser.add_argument("--quad_conf", type=float, default=0.5)
     parser.add_argument("--obj_conf", type=float, default=0.5)
@@ -55,7 +65,10 @@ def main(argv=None):
                       **(SMOKE_MODEL if args.smoke else {}))
     payload = torch.load(args.checkpoint_path, map_location="cpu",
                          weights_only=True)
-    state_dict = payload["model"] if "model" in payload else payload
+    state_dict = payload
+    if "model" in payload:
+        state_dict = payload["ema_model" if payload.get("tag") == "ema_best"
+                             else "model"]
     model = load_model(state_dict, cfg, device)
 
     pts = load_cloud(args.input)
@@ -90,6 +103,12 @@ def main(argv=None):
     with open(args.output, "w") as f:
         json.dump({"quads": quads, "objects": objects}, f, indent=2)
     print(f"{len(quads)} quads, {len(objects)} objects -> {args.output}")
+
+    if args.dump_ply:
+        from ..utils.viz import dump_quad_results, write_ply_points
+        os.makedirs(args.dump_ply, exist_ok=True)
+        write_ply_points(pts, os.path.join(args.dump_ply, "input.ply"))
+        dump_quad_results(ep, args.dump_ply, conf_thresh=args.quad_conf)
     return quads, objects
 
 

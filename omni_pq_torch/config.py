@@ -40,6 +40,10 @@ SCANNET_MEAN_SIZES = np.array([
     [0.47535286, 0.49249493, 0.58021168],
 ], dtype=np.float32)
 
+# the 18 detection classes' nyu40 ids (scannet/model_util_scannet.py:22)
+SCANNET_NYU40_IDS = np.array([3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28,
+                              33, 34, 36, 39])
+
 
 @dataclasses.dataclass(frozen=True)
 class DatasetConfig:

@@ -223,6 +223,9 @@ class SyntheticDataset:
     def __len__(self):
         return self.n_scenes
 
+    def reseed(self):
+        """Nothing to start again: scene i is a function of seed and i."""
+
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(self.seed * 100003 + idx)
         s = make_scene(rng, self.num_points, **self.kw)

@@ -373,13 +373,18 @@ def test_train_cli_bf16_flags_on_cpu(tmp_path, monkeypatch, flags, dtype,
     real_ds = data_pkg.SyntheticDataset
     monkeypatch.setattr(data_pkg, "SyntheticDataset",
                         lambda n, *a, **kw: real_ds(4, *a, **kw))
-    last = train_cli.main([
+    train_cli.main([
         "--smoke", "--synthetic_data", "--num_point", "512", "--device",
-        "cpu", "--max_epoch", "1", "--batch_size", "2", "--pc_loss",
+        "cpu", "--max_epoch", "1", "--end_proportion", "1.0",
+        "--print_freq", "1", "--batch_size", "2", "--pc_loss",
         "--log_dir", str(tmp_path), *flags])
     assert seen == {"dtype": dtype, "teacher": teacher,
                     "model": getattr(torch, dtype)}
-    assert np.isfinite(last["total_loss"]) and np.isfinite(last["grad_norm"])
+    last = [json.loads(line) for line in
+            (tmp_path / "metrics.jsonl").read_text().splitlines()
+            if "train/total_loss" in line][-1]
+    assert (np.isfinite(last["train/total_loss"])
+            and np.isfinite(last["train/grad_norm"]))
 
 
 # -- the fused chain ---------------------------------------------------------
