@@ -128,6 +128,26 @@ when every phase passed:
      tagged so) equal to the in-loop teacher's F1 and loss; a resume from
      epoch 1 (epoch 2 again, within CLI_RESUME_REL, counts carried on);
      cli.infer on a .ply of one scan.
+ 18. data parallelism (omni_pq_torch.parallel) on the one card, where
+     NCCL takes one rank a card: (a) in this process, a world-1 NCCL group
+     and the full-width fused semi step of phase 12 (weights, inputs and
+     generator seed) inside parallel.data_parallel, against two steps
+     without a group (their gap is the card's own noise): stats, gradients
+     and BN running stats within DP_W1_TOL, 12 FPS, 10 ball-query and 8
+     fused launches; ms/step in turns and a profile of each (kernel time,
+     the NCCL kernels a step, the fused calls' stats-finishing launches);
+     (b) 2 ranks over gloo on cuda:0 (subprocesses of this script with
+     --dp-rank), the same step at 3 + 3 scenes a rank against one process
+     on the global 6 + 6 from the same state and seed: total_loss and
+     grad_norm within DP_STEP_RTOL, each fused call's global means and
+     variances within DP_FUSED_STATS_REL of the one-process kernel's,
+     12 / 10 / 8 launches a rank-step, every parameter, AdamW moment and
+     BN buffer bitwise equal across the ranks after 2 steps; (c) the train
+     CLI with --multihost on 2 gloo ranks on a fake ScanNet tree of 12 + 4
+     scans (--ema --gamma_mixture, bf16, 2 steps, in-loop eval): rank 0
+     alone writes the run's files, both ranks log the same losses and F1,
+     and cli.eval in one process on its epoch-1 checkpoint gives the
+     in-loop F1.
 The second-last line is the kernels JSON, the last the device JSON. Details
 go to chiprun_out/chip_smoke.json, chiprun_out/chip_smoke_profile.txt,
 chiprun_out/chip_smoke_train_profile.txt,
@@ -240,6 +260,32 @@ CLI_EVAL_REL = 1e-5
 # (a lost or doubled loss term); the resume itself is held by the step and
 # optimiser counts of its last checkpoint
 CLI_RESUME_REL = 0.25
+# phase 18: data parallelism on the one card (NCCL takes one rank a card)
+DP_WORLD = 2
+DP_RANK_TIMEOUT_S = 400
+# 18a, the world-1 NCCL step against the step without a group: stats
+# relative to max(1, |value|), gradients relative to the gradient norm, BN
+# running stats relative to max(1, their largest). At world 1 the context
+# adds no arithmetic, so only the card's own noise is left (index_add_
+# adds in no fixed order): two steps without a group read 0-1.8e-7 of
+# stats, 0.8-1.1e-7 of the gradient norm, 0 of the buffers, and the world-1
+# step 8.9e-8, 7.3e-8, 0 from them (H100 80GB HBM3, 700 W). The bounds sit
+# two orders above that noise and two below what a design that summed
+# [sum x, sum x^2, n] read at world 1 (9.1e-5 of stats, 4.2e-4 of the norm)
+DP_W1_TOL = {"stats": 1e-5, "grads": 1e-5, "buffers": 1e-6}
+# 18b, two ranks against one process on the global batch, at step 1: the
+# ranks add their halves' statistics, one process all rows at once, and
+# the roundoff moves a vote-aggregation FPS pick now and then (2 of the
+# teacher's 3072 in a run that read total_loss 2.9e-7 and grad_norm 4.6e-6
+# apart; the summed design read 1.7e-4 and 1.1e-2). A lost or doubled term
+# or an undivided gather factor is 50-100 times outside
+DP_STEP_RTOL = {"total_loss": 1e-3, "grad_norm": 2e-2}
+# each fused call's global means and variances against the one-process
+# kernel's, relative to each vector's largest magnitude
+DP_FUSED_STATS_REL = 1e-5
+# 18c: the train CLI's fake ScanNet tree (2 steps of 3 + 3 a rank; a val
+# shard of 2 scans a rank, no padding)
+DP_CLI_TRAIN, DP_CLI_VAL = 12, 4
 
 
 def check(cond, msg):
@@ -581,9 +627,13 @@ def profile_step(run, expect, step_ms):
     kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in events if e.device_type == DeviceType.CUDA
                    and re.search(r"::(fused_mlp(_bf16)?|mlp_pass(_bf16)?"
-                                 r"|mlp_stats|mlp_pool|ball_query|fps)"
-                                 r"_kernel\b", e.key)),
+                                 r"|mlp_stats(_finish)?|mlp_pool|ball_query"
+                                 r"|fps)_kernel\b", e.key)),
                   reverse=True)
+    # the collectives' kernels (data parallelism over NCCL)
+    nccl = [(e.self_device_time_total / 1e3, e.count) for e in events
+            if e.device_type == DeviceType.CUDA
+            and re.search(r"nccl", e.key, re.I)]
     seen = {name: sum(c for _, c, k in kern
                       if re.search(rf"::{name}\b", k)) for name in expect}
     complete = seen == expect
@@ -597,7 +647,8 @@ def profile_step(run, expect, step_ms):
     return (dict(device_ms=dev_ms, step_ms=step_ms,
                  busy_share=dev_ms / step_ms, by_op=ops_ms[:12],
                  kernels=kern, kernel_launches_seen=seen, complete=complete,
-                 line=line),
+                 nccl_launches=sum(c for _, c in nccl),
+                 nccl_ms=sum(t for t, _ in nccl), line=line),
             traced[0].table(sort_by="self_device_time_total", row_limit=25))
 
 
@@ -1846,6 +1897,469 @@ def cli_phase(card, report):
                 resume_gap=gap, quads=len(quads))
 
 
+# -- phase 18: data parallelism on the one card ------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_global_batches(num_points: int):
+    """Phase 18b's global batch: DP_WORLD * TRAIN_B labeled and as many weak
+    scenes, made from the seed (the ranks make the same and take their
+    rows)."""
+    from omni_pq_torch.data import make_batch
+    return tuple(make_batch(np.random.default_rng(SEED + 10 + i),
+                            DP_WORLD * TRAIN_B, num_points) for i in (0, 1))
+
+
+def record_fused_stats(ops, records):
+    """Route ops.fused_mlp_pool through a recorder of each call's batch
+    means and variances (on the host); returns the restoring function."""
+    real = ops.fused_mlp_pool
+
+    def recorder(*a, **kw):
+        out = real(*a, **kw)
+        records.append(([m.detach().cpu() for m in out[1]],
+                        [v.detach().cpu() for v in out[2]]))
+        return out
+
+    ops.fused_mlp_pool = recorder
+
+    def restore():
+        ops.fused_mlp_pool = real
+    return restore
+
+
+def record_fps_picks(ops, records):
+    """Route ops.fps through a recorder of each call's picks (on the host);
+    returns the restoring function."""
+    real = ops.fps
+
+    def recorder(xyz, npoint):
+        inds = real(xyz, npoint)
+        records.append(inds.cpu())
+        return inds
+
+    ops.fps = recorder
+
+    def restore():
+        ops.fps = real
+    return restore
+
+
+def rank_rows(rank: int) -> list:
+    """The global rows of rank `rank`'s local double batch [L_r | W_r]."""
+    return [rank * TRAIN_B + i for i in range(TRAIN_B)] + [
+        DP_WORLD * TRAIN_B + rank * TRAIN_B + i for i in range(TRAIN_B)]
+
+
+def semi_stepper(cfg, dev, labeled, weak):
+    """A fresh full-width fused model from SEED, its TrainState (EMA) and
+    generator, and a function that runs one TrainFlags() step on the given
+    batches (phase 12's fused step)."""
+    import torch
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.infer import build_model
+    from omni_pq_torch.train import (OptimizerConfig, TrainFlags, TrainState,
+                                     make_train_step)
+    fcfg = dataclasses.replace(cfg, fused_sa=True)
+    model = build_model(fcfg, dev, seed=SEED)
+    state = TrainState(model, OptimizerConfig(), ema=True)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    step = make_train_step(model, fcfg, SCANNET_MEAN_SIZES, TrainFlags())
+    return model, state, lambda: step(state, labeled, weak, generator=gen,
+                                      consistency_weight=CONSISTENCY_WEIGHT)
+
+
+def step_reading(model, state, stats) -> dict:
+    """A step's stats, gradients and BN running stats (student, teacher)."""
+    return dict(
+        stats={k: float(v) for k, v in stats.items()},
+        grads={n: p.grad.detach().clone()
+               for n, p in model.named_parameters()},
+        buffers={f"{who}.{n}": b.detach().clone()
+                 for who, m in (("student", model),
+                                ("teacher", state.ema_model))
+                 for n, b in m.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))})
+
+
+def reading_gaps(a, b) -> dict:
+    """Largest gaps of reading `a` from `b`: stats relative to max(1,
+    |b|), gradients relative to b's grad_norm, BN running stats relative to
+    max(1, the buffer's largest magnitude)."""
+    norm = b["stats"]["grad_norm"]
+    return dict(
+        stats=max(abs(a["stats"][k] - v) / max(1.0, abs(v))
+                  for k, v in b["stats"].items()),
+        grads=max(float((a["grads"][n] - g).abs().max()) / norm
+                  for n, g in b["grads"].items()),
+        buffers=max(float((a["buffers"][n] - t).abs().max())
+                    / max(1.0, float(t.abs().max()))
+                    for n, t in b["buffers"].items()))
+
+
+def dp_world1_phase(cfg, dev, card, report):
+    """Phase 18a: the data-parallel path on a world-1 NCCL group in this
+    process, the full-width fused semi step from phase 12's weights, inputs
+    and generator seed, against the step without a process group."""
+    import contextlib
+    import torch
+    import torch.distributed as dist
+    from omni_pq_torch import ops, parallel
+    from omni_pq_torch.data import make_batch
+    from omni_pq_torch.train import batch_to_tensors
+    labeled, weak = (batch_to_tensors(make_batch(
+        np.random.default_rng(SEED + i), TRAIN_B, cfg.num_points), dev)
+        for i in (0, 1))
+    counted = {"fps": ops.fps, "ball_query_group": ops.ball_query_group,
+               "fused_mlp_pool": ops.fused_mlp_pool}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        runs, readings = {}, {}
+        # two steps without a group (their gap is the card's own noise:
+        # index_add_ adds in no fixed order), then one inside the context
+        for tag in ("plain_a", "plain_b", "nccl"):
+            ctx = (parallel.data_parallel if tag == "nccl"
+                   else contextlib.nullcontext)
+            model, state, run = semi_stepper(cfg, dev, labeled, weak)
+            with ctx():
+                reset_launch_counts(counted)
+                st = run()
+                torch.cuda.synchronize()
+            readings[tag] = step_reading(model, state, st)
+            readings[tag]["launches"] = fused_launch_counts(counted)
+            runs[tag] = (run, ctx)
+            del model, state, st
+        want = {"fps": 12, "ball_query_group": 10, "fused_mlp_pool": 8}
+        for tag, r in readings.items():
+            check(r["launches"] == want, f"world-1 {tag} step launches "
+                  f"{r['launches']}, expected {want}")
+        noise = reading_gaps(readings["plain_b"], readings["plain_a"])
+        gap = reading_gaps(readings["nccl"], readings["plain_a"])
+        semi = report["semi"]
+        p12 = max(abs(readings["plain_a"]["stats"][k] - v) / max(1.0, abs(v))
+                  for k, v in semi["routes"]["fused"]["stats"][0].items())
+        print(f"[dp] 18a phase 12's fused semi step, same weights and "
+              f"inputs: {np.mean(semi['step_ms']['fused']):.3f} ms/step, "
+              f"kernel {semi['profile']['fused']['device_ms']:.3f} ms "
+              f"[{card}]")
+        print(f"[dp] 18a world-1 NCCL fused semi step against the step "
+              f"without a group: stats {gap['stats']:.3e}, gradients "
+              f"{gap['grads']:.3e} of the norm, BN running stats "
+              f"{gap['buffers']:.3e}; two steps without a group: "
+              f"{noise['stats']:.3e}, {noise['grads']:.3e}, "
+              f"{noise['buffers']:.3e}; phase 12's first fused step "
+              f"against this one's stats {p12:.3e} (bounds {DP_W1_TOL})")
+        for key, bound in DP_W1_TOL.items():
+            check(gap[key] <= bound, f"world-1 NCCL step: {key} gap "
+                  f"{gap[key]:.3e} above {bound}")
+        del readings
+        times = {"plain_a": [], "nccl": []}
+        for tag in ("plain_a", "nccl", "nccl", "plain_a"):
+            run, ctx = runs[tag]
+            with ctx():
+                times[tag].append(wall_ms_per_call(run, reps=3))
+        expect = {"fps_kernel": 12, "ball_query_kernel": 10,
+                  **fused_train_launches([3] * 8)}
+        prof = {}
+        for tag in ("plain_a", "nccl"):
+            run, ctx = runs[tag]
+            want_k = dict(expect, **({"mlp_stats_finish_kernel": 24}
+                                     if tag == "nccl" else {}))
+            with ctx():
+                prof[tag], _ = profile_step(run, want_k,
+                                            float(np.mean(times[tag])))
+            print(f"[dp] 18a {tag} profile: {prof[tag]['line']}")
+            print(f"[dp] 18a {tag}: {np.mean(times[tag]):.3f} ms/step "
+                  f"({[round(t, 1) for t in times[tag]]}), kernel "
+                  f"{prof[tag]['device_ms']:.3f} ms, NCCL kernels "
+                  f"{prof[tag]['nccl_launches']} a step, "
+                  f"{prof[tag]['nccl_ms']:.3f} ms [{card}]")
+    finally:
+        dist.destroy_process_group()
+    return dict(gap=gap, noise=noise, phase12_stats_gap=p12, step_ms=times,
+                profile={k: {kk: v[kk] for kk in (
+                    "device_ms", "step_ms", "busy_share", "complete",
+                    "kernel_launches_seen", "nccl_launches", "nccl_ms")}
+                    for k, v in prof.items()})
+
+
+def fused_stats_gap(got, want) -> float:
+    """Largest gap over the fused calls' per-layer means and variances,
+    each vector's relative to its largest magnitude."""
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for (gm, gv), (wm, wv) in zip(got, want)
+               for g, w in zip(gm + gv, wm + wv))
+
+
+def dp_ranks_phase(cfg, dev, card):
+    """Phase 18b: 2 ranks over gloo, both on cuda:0 (subprocesses of this
+    script), the full-width fused semi step at 3 + 3 scenes a rank, against
+    one process's step on the global 6 + 6 from the same state and seed."""
+    import torch
+    from omni_pq_torch import ops
+    from omni_pq_torch.train import batch_to_tensors
+    lab, wk = dp_global_batches(cfg.num_points)
+    labeled, weak = (batch_to_tensors(b, dev) for b in (lab, wk))
+    model, state, run = semi_stepper(cfg, dev, labeled, weak)
+    records, picks, stats = [], [], []
+    for i in range(2):
+        restores = ([record_fused_stats(ops, records),
+                     record_fps_picks(ops, picks)] if i == 0 else [])
+        try:
+            stats.append({k: float(v) for k, v in run().items()})
+        finally:
+            for restore in restores:
+                restore()
+    torch.cuda.synchronize()
+    ref_peak = torch.cuda.max_memory_allocated(dev)
+    del model, state, run, labeled, weak
+    torch.cuda.empty_cache()
+    check(len(records) == 8, f"one-process step: {len(records)} fused "
+          "calls, expected 8")
+
+    out = os.path.join(ROOT, "build", "chip_smoke_dp")
+    os.makedirs(out, exist_ok=True)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         "--dp-port", str(port), "--dp-out", out], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(DP_WORLD)]
+    outs = [p.communicate(timeout=DP_RANK_TIMEOUT_S)[0].decode()
+            for p in procs]
+    wall_s = time.perf_counter() - t0
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"18b rank {r} exited {p.returncode}:\n"
+              + o[-3000:])
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(DP_WORLD)]
+    for r in ranks:
+        check(r["launches"] == {"fps": 12, "ball_query_group": 10,
+                                "fused_mlp_pool": 8},
+              f"18b rank {r['rank']} step launches {r['launches']}")
+        check(len(r["fused_stats"]) == 8, f"18b rank {r['rank']}: "
+              f"{len(r['fused_stats'])} fused calls recorded")
+    # the FPS picks of each forward (student, then teacher): sa1-4 and the
+    # quad queries depend on xyz alone, so each rank's rows must be the
+    # one process's bitwise; vote aggregation's depend on the features
+    check(all(len(r["fps_picks"]) == len(picks) == 12 for r in ranks),
+          "18b: FPS calls recorded "
+          f"{[len(r['fps_picks']) for r in ranks]}, one process "
+          f"{len(picks)}, expected 12")
+    moved = {}
+    for r in ranks:
+        for c, (got, want) in enumerate(zip(r["fps_picks"], picks)):
+            diff = int((got != want[rank_rows(r["rank"])]).sum())
+            if c % 6 == 5:
+                moved[c] = moved.get(c, 0) + diff
+            else:
+                check(diff == 0, f"18b rank {r['rank']}: FPS call {c} "
+                      f"(xyz only) has {diff} picks unlike the one process's"
+                      " rows")
+    gaps = {"fused_stats": max(fused_stats_gap(r["fused_stats"], records)
+                               for r in ranks)}
+    for k in ("total_loss", "grad_norm"):
+        gaps[k] = max(abs(r["stats"][0][k] - stats[0][k]) / abs(stats[0][k])
+                      for r in ranks)
+    same = ranks[0]["digests"] == ranks[1]["digests"]
+    differ = sum(ranks[0]["digests"][k] != v
+                 for k, v in ranks[1]["digests"].items())
+    print(f"[dp] 18b 2 gloo ranks on cuda:0 (3 + 3 scenes each) against one "
+          f"process on the global 6 + 6: total_loss "
+          f"{gaps['total_loss']:.3e} and grad_norm {gaps['grad_norm']:.3e} "
+          f"relative at step 1 (bounds {DP_STEP_RTOL}); the 8 fused calls' "
+          f"global means and variances within {gaps['fused_stats']:.3e} of "
+          f"each vector's largest (bound {DP_FUSED_STATS_REL}); launches a "
+          f"rank-step {ranks[0]['launches']}; after 2 steps "
+          f"{len(ranks[0]['digests'])} parameters, AdamW moments and BN "
+          f"buffers {'bitwise equal' if same else f'{differ} UNEQUAL'} "
+          "across the ranks; FPS picks of sa1-4 and the quad queries "
+          "bitwise the one process's rows, vote aggregation's moved "
+          f"(student, teacher; of {2 * DP_WORLD * TRAIN_B} x "
+          f"{cfg.num_proposal}): {moved[5]}, {moved[11]}")
+    check(gaps["fused_stats"] <= DP_FUSED_STATS_REL, "18b fused statistics "
+          f"{gaps['fused_stats']:.3e} from the one-process kernel's")
+    for k, bound in DP_STEP_RTOL.items():
+        check(gaps[k] <= bound, f"18b {k} {gaps[k]:.3e} from the one-process"
+              f" step (bound {bound})")
+    check(same, f"18b: {differ} tensors differ across the ranks")
+    check(ranks[0]["stats"] == ranks[1]["stats"], "18b: the ranks' stats "
+          "differ")
+    for r in ranks:
+        print(f"[dp] 18b rank {r['rank']}: step wall ms "
+              f"{[round(x, 1) for x in r['step_ms']]} (two processes "
+              f"sharing one card over gloo: not a multi-card speed), peak "
+              f"memory {r['peak'] / 2**30:.2f} GiB [{card}]")
+    print(f"[dp] 18b one-process 6 + 6 step: total_loss "
+          f"{[round(x['total_loss'], 5) for x in stats]}, grad_norm "
+          f"{[round(x['grad_norm'], 4) for x in stats]}, peak memory "
+          f"{ref_peak / 2**30:.2f} GiB; the ranks' run {wall_s:.1f} s")
+    return dict(gaps=gaps, vote_picks_moved=moved, ref_stats=stats, rank_stats=[r["stats"]
+                                                          for r in ranks],
+                rank_step_ms=[r["step_ms"] for r in ranks],
+                rank_peak=[r["peak"] for r in ranks], ref_peak=ref_peak,
+                ranks_wall_s=wall_s, tensors=len(ranks[0]["digests"]))
+
+
+def dp_rank_main(argv) -> int:
+    """One rank of phase 18b (`--dp-rank R --dp-port P --dp-out DIR`)."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from omni_pq_torch import ops, parallel
+    from omni_pq_torch.config import ModelConfig
+    from omni_pq_torch.train import batch_to_tensors
+    opts = dict(zip(argv[::2], argv[1::2]))
+    rank, port, out = (int(opts["--dp-rank"]), opts["--dp-port"],
+                       opts["--dp-out"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ[parallel.BACKEND_ENV] = "gloo"  # NCCL: one rank a card
+    dev = parallel.init_distributed(f"localhost:{port}", DP_WORLD, rank,
+                                    device="cuda")
+    cfg = ModelConfig()
+    lab, wk = dp_global_batches(cfg.num_points)
+    rows = slice(rank * TRAIN_B, (rank + 1) * TRAIN_B)
+    labeled, weak = (batch_to_tensors({k: v[rows] for k, v in b.items()},
+                                      dev) for b in (lab, wk))
+    model, state, run = semi_stepper(cfg, dev, labeled, weak)
+    counted = {"fps": ops.fps, "ball_query_group": ops.ball_query_group,
+               "fused_mlp_pool": ops.fused_mlp_pool}
+    records, picks, stats, step_ms = [], [], [], []
+    with parallel.data_parallel():
+        for i in range(2):
+            restores = []
+            if i == 0:
+                reset_launch_counts(counted)
+                restores = [record_fused_stats(ops, records),
+                            record_fps_picks(ops, picks)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                st = run()
+                torch.cuda.synchronize()
+            finally:
+                for restore in reversed(restores):
+                    restore()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                launches = fused_launch_counts(counted)
+            stats.append({k: float(v) for k, v in st.items()})
+    digests = {}
+    for who, m in (("student", model), ("teacher", state.ema_model)):
+        for k, v in m.state_dict().items():
+            digests[f"{who}.{k}"] = v
+    for name, p in model.named_parameters():
+        for k, v in state.optimizer.state.get(p, {}).items():
+            digests[f"adamw.{name}.{k}"] = v
+    digests = {k: hashlib.sha1(v.detach().cpu().contiguous().view(-1)
+                               .view(torch.uint8).numpy().tobytes())
+               .hexdigest() for k, v in digests.items()}
+    torch.save(dict(rank=rank, stats=stats, step_ms=step_ms,
+                    launches=launches, fused_stats=records,
+                    fps_picks=picks, digests=digests,
+                    peak=torch.cuda.max_memory_allocated(dev)),
+               os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_cli_phase(card):
+    """Phase 18c: `python -m omni_pq_torch.cli.train --multihost` on 2 gloo
+    ranks on the card (--ema --gamma_mixture, bf16, one epoch of 2 steps,
+    in-loop eval) on a fake ScanNet tree, then cli.eval in this process on
+    its epoch-1 checkpoint."""
+    import shutil
+    from omni_pq_torch.cli import eval as eval_cli
+    from omni_pq_torch.parallel import BACKEND_ENV
+    work = os.path.join(ROOT, "build", "chip_smoke_dp_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "scannet")
+    scans = [f"scene{i:04d}_00" for i in range(DP_CLI_TRAIN + DP_CLI_VAL)]
+    load_fake_data().write_fake_scannet(data, scans,
+                                        np.random.default_rng(SEED),
+                                        n_verts=CLI_VERTS)
+    with open(os.path.join(data, "meta_data/scannetv2_train.txt"), "w") as f:
+        f.write("\n".join(scans[:DP_CLI_TRAIN]))
+    with open(os.path.join(data, "meta_data/scannetv2_val.txt"), "w") as f:
+        f.write("\n".join(scans[DP_CLI_TRAIN:]))
+    run = os.path.join(work, "run")
+    argv = ["--data_root", data, "--ema", "--gamma_mixture", "--batch_size",
+            str(TRAIN_B), "--max_epoch", "1", "--end_proportion", "1.0",
+            "--val_freq", "1", "--save_freq", "1", "--print_freq", "1",
+            "--log_dir", run]
+    port = free_port()
+    try:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "omni_pq_torch.cli.train", *argv,
+             "--multihost", "--coordinator_address", f"localhost:{port}",
+             "--num_processes", str(DP_WORLD), "--process_id", str(r)],
+            cwd=ROOT, env=dict(os.environ, **{BACKEND_ENV: "gloo"}),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(DP_WORLD)]
+        outs = [p.communicate(timeout=DP_RANK_TIMEOUT_S)[0].decode()
+                for p in procs]
+        wall_s = time.perf_counter() - t0
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"18c train CLI rank {r} exited "
+                  f"{p.returncode}:\n" + o[-3000:])
+        files = set(os.listdir(run)) - {"ckpt_epoch_best.pth",
+                                        "ckpt_epoch_ema_best.pth"}
+        want = {"ckpt_epoch_1.pth", "ckpt_epoch_last.pth", "config.json",
+                "log.rank0.txt", "log.rank1.txt", "metrics.jsonl", "tb"}
+        check(files == want, f"18c: files {sorted(files)}, expected "
+              f"{sorted(want)}")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        train = [r for r in recs if "train/total_loss" in r]
+        evals = [r for r in recs if "eval/quad_f1" in r]
+        check([r["step"] for r in train] == [1, 2] and len(evals) == 1,
+              f"18c: metrics.jsonl holds train steps "
+              f"{[r['step'] for r in train]} and {len(evals)} eval records "
+              "(one writer: steps [1, 2] and one eval)")
+        check(all(np.isfinite(v) for r in recs for v in r.values()),
+              "18c: non-finite metrics")
+        lines = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(run, f"log.rank{r}.txt")) as f:
+                lines.append([re.sub(r" (step_ms|data_ms) \S+", "",
+                                     m.group(1)) for m in (
+                    re.search(r"INFO (Train: .*|\[eval:.*)", line)
+                    for line in f) if m])
+        check(len(lines[0]) > 2 and lines[0] == lines[1],
+              "18c: the ranks logged different losses or F1")
+        f1_loop = evals[0]["eval/quad_f1"]
+        eval_dir = os.path.join(work, "eval")
+        f1 = eval_cli.main(["--data_root", data, "--log_dir", eval_dir,
+                            "--checkpoint_path",
+                            os.path.join(run, "ckpt_epoch_1.pth")])
+        check(f1 == f1_loop, f"18c: cli.eval F1 {f1} on the epoch-1 "
+              f"checkpoint, in-loop (2 ranks) {f1_loop}")
+        print(f"[dp] 18c train CLI --multihost, 2 gloo ranks on cuda:0: "
+              f"{len(train)} steps (B={TRAIN_B}+{TRAIN_B} a rank, bf16) "
+              f"and the in-loop eval in {wall_s:.1f} s; rank 0 alone wrote "
+              f"{sorted(files - {'log.rank1.txt'})}; both ranks logged the "
+              f"same {len(lines[0])} loss / F1 lines; total_loss "
+              f"{[round(r['train/total_loss'], 4) for r in train]}, step "
+              f"wall ms {[round(r['train/step_ms'], 1) for r in train]} "
+              f"(two processes sharing one card); in-loop quad F1 "
+              f"{f1_loop}, cli.eval in one process on ckpt_epoch_1.pth "
+              f"{f1} [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(steps=len(train), wall_s=wall_s, f1=f1, f1_in_loop=f1_loop,
+                total_loss=[r["train/total_loss"] for r in train],
+                step_ms=[r["train/step_ms"] for r in train])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2169,6 +2683,12 @@ def main() -> int:
 
     # -- 17. the entry points: train CLI, eval CLI, resume, infer on a .ply
     report["cli"] = cli_phase(card, report)
+
+    # -- 18. data parallelism on the one card: a world-1 NCCL group, 2 gloo
+    # ranks against one process, the train CLI with --multihost
+    report["dp_world1"] = dp_world1_phase(cfg, dev, card, report)
+    report["dp_ranks"] = dp_ranks_phase(cfg, dev, card)
+    report["dp_cli"] = dp_cli_phase(card)
     report["kernel_rows"] = rows
     # a time below its bound means a miscounted bound or a broken timer
     for kname, krows in rows.items():
@@ -2270,4 +2790,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--dp-rank" in sys.argv:
+        sys.exit(dp_rank_main(sys.argv[1:]))
     sys.exit(main())

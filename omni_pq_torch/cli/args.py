@@ -5,12 +5,14 @@ and one more, --device ('cuda', the default, or 'cpu'). Quirk preserved:
 print/save/val freq, max_epoch and consistency_rampup are divided by
 end_proportion (label-rate-normalized epochs, train.py:128-132).
 
-Four of the JAX package's flags are kept so that its scripts still parse,
+Two of the JAX package's flags are kept so that its scripts still parse,
 and refused when set to anything but their defaults: --eval_quad_topk (the
 TPU's packing of what the host fetches at eval; the port's eval decodes
-every proposal), --threefry (a choice of the TPU's
-PRNG; the port draws from a torch.Generator), and --multihost with its
-coordinator flags (data parallelism, ROADMAP.md Queue 1's M10 item)."""
+every proposal) and --threefry (a choice of the TPU's PRNG; the port draws
+from a torch.Generator). --multihost with --coordinator_address,
+--num_processes and --process_id is data parallelism over
+torch.distributed (`omni_pq_torch.parallel`), with --batch_size per
+process, as in the JAX CLI."""
 from __future__ import annotations
 
 import argparse
@@ -87,9 +89,11 @@ def build_parser(is_eval: bool = False) -> argparse.ArgumentParser:
                         nargs='+')
     parser.add_argument('--rng_seed', type=int, default=0)
     # multi-host data parallelism (the reference's torch.distributed.launch
-    # surface, train.py:771-799): refused until the port has it
+    # surface, train.py:771-799); without --coordinator_address the
+    # process group reads torchrun's environment
     parser.add_argument('--multihost', action='store_true',
-                        help='refused: data parallelism is not ported yet')
+                        help='data parallelism over torch.distributed '
+                             '(--batch_size is per process)')
     parser.add_argument('--coordinator_address', default=None,
                         help='host:port of process 0 (default: cluster env)')
     parser.add_argument('--num_processes', type=int, default=None)
@@ -164,11 +168,6 @@ def parse_option(argv=None, is_eval: bool = False):
                              "port's eval decodes every proposal"),
         '--threefry': (args.threefry, "a choice of the JAX package's PRNG; "
                        "the port draws from a torch.Generator"),
-        '--multihost': (args.multihost or args.coordinator_address is not None
-                        or args.num_processes is not None
-                        or args.process_id is not None,
-                        "data parallelism is not ported yet (ROADMAP.md "
-                        "Queue 1, M10 data parallel)"),
     }
     for flag, (is_set, why) in refused.items():
         if is_set:

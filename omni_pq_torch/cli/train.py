@@ -22,10 +22,22 @@ the eval CLI, scores the same clouds; the JAX loop draws on from one
 stream. Runs on the card unless --device cpu is given. The model computes
 in bfloat16 by default (--f32 opts out).
 
+--multihost trains data-parallel over torch.distributed (`parallel`), as
+the JAX CLI over its mesh: one process a card (NCCL; --device cpu: gloo
+ranks on the CPU), the group from --coordinator_address / --num_processes
+/ --process_id or from torchrun's environment; --batch_size scenes a
+process from its shard of the labeled split, the same weak batches on
+every process, each step the single-process step on the global batch;
+evaluation over the sharded val split with the full-set metrics on every
+process; rank 0 alone writes config.json, metrics.jsonl, the profile and
+the checkpoints, and every rank logs to <log_dir>/log.rank<r>.txt.
+
 Run:  python -m omni_pq_torch.cli.train --ema --gamma_mixture --pc_loss \
           --end_proportion 0.1 --data_root <scannet_root>
       (add --synthetic_data for a run without data on disk, and --smoke
       --num_point 512 --device cpu for a tiny CPU run)
+      torchrun --nproc_per_node N -m omni_pq_torch.cli.train --multihost ...
+      (N cards; add --device cpu for N gloo ranks on the CPU)
 """
 from __future__ import annotations
 
@@ -102,9 +114,18 @@ def evaluate(args, state, val_loader, dataset_config, logger, use_ema=False,
     object mAP / AR at each --ap_iou_thresholds (skipped under
     --faster_eval), and the eval-time supervised loss stats (train.py:
     638-668) on batches that carry the full label set, whose means are
-    logged and written under eval_{student|ema}/. Returns the quad F1."""
+    logged and written under eval_{student|ema}/. Returns the quad F1.
+
+    Inside `parallel.data_parallel` (a sharded val loader, the same number
+    of scenes on every rank), each rank forwards its shard, the end points
+    and the batch are gathered to every rank (rows rank by rank), and every
+    rank computes the full-set metrics and the loss stats of the global
+    batches, as the JAX CLI's multi-process evaluation (its
+    cli/train.py:144-172): the loader's wrap-around padding scenes count,
+    as there."""
     import torch
 
+    from .. import parallel
     from ..config import SCANNET_MEAN_SIZES
     from ..evals import (APCalculator, QuadAPCalculator, parse_groundtruths,
                          parse_predictions, parse_quad_groundtruths,
@@ -127,11 +148,15 @@ def evaluate(args, state, val_loader, dataset_config, logger, use_ema=False,
     num_layer = model.cfg.num_decoder_layers
     loss_sums: dict = {}
     loss_batches = 0
+    dp = parallel.current()
     val_loader.dataset.reseed()
     for bi, batch in enumerate(val_loader):
         if max_batches is not None and bi >= max_batches:
             break
         ep = eval_step(state, batch["point_clouds"], use_ema=use_ema)
+        if dp is not None:  # the global batch on every rank
+            ep = parallel.gather_rows(ep)
+            batch = parallel.gather_scenes(batch)
         if all(k in batch for k in LOSS_KEYS):
             merged = dict(ep)
             merged.update(batch_to_tensors(batch, device))
@@ -159,7 +184,7 @@ def evaluate(args, state, val_loader, dataset_config, logger, use_ema=False,
             obj_gt = parse_groundtruths(merged, config_dict)
             for calc in obj_calcs.values():
                 calc.step(obj_pred, obj_gt)
-        if args.dump_result and bi == 0:
+        if args.dump_result and bi == 0 and parallel.rank() == 0:
             from ..utils.viz import dump_object_results, dump_quad_results
             dump_dir = os.path.join(args.log_dir, "dump")
             dump_quad_results(ep, dump_dir)
@@ -242,33 +267,63 @@ class StepProfiler:
 def main(argv=None):
     args = parse_option(argv)
 
+    import torch.distributed as dist
+
+    from .. import parallel
+    from ..infer import resolve_device
+
+    if not args.multihost:
+        return train(args, resolve_device(args.device))
+    # before any other device access (the reference's init_process_group,
+    # train.py:775-776, before model.cuda())
+    device = parallel.init_distributed(args.coordinator_address,
+                                       args.num_processes, args.process_id,
+                                       device=args.device)
+    try:
+        with parallel.data_parallel():
+            return train(args, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def train(args, device):
+    """The training loop on `device`; data-parallel over the process group
+    inside `parallel.data_parallel`. Returns (best F1, best teacher F1)."""
     import torch
 
+    from .. import parallel
     from ..config import SCANNET_MEAN_SIZES, DatasetConfig
     from ..data import Loader, PrefetchLoader, endless
-    from ..infer import build_model, resolve_device
+    from ..infer import build_model
     from ..train import (OptimizerConfig, TrainFlags, TrainState,
                          batch_to_tensors, consistency_weight,
                          load_checkpoint, make_train_step, save_checkpoint)
     from ..utils.logger import setup_logger
     from ..utils.metrics import MetricsLogger
 
-    device = resolve_device(args.device)
+    dp = parallel.current()
+    rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
+    lead = rank == 0  # writes the files of the run
     os.makedirs(args.log_dir, exist_ok=True)
-    logger = setup_logger(args.log_dir)
+    logger = setup_logger(args.log_dir, distributed_rank=rank)
     logger.info(" ".join(sys.argv))
-    with open(os.path.join(args.log_dir, "config.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
-    metrics = MetricsLogger(args.log_dir)
+    if lead:
+        with open(os.path.join(args.log_dir, "config.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
+    metrics = MetricsLogger(args.log_dir) if lead else None
 
     labeled_ds, weak_ds, val_ds = get_datasets(args)
     logger.info(f"datasets: labeled {len(labeled_ds)} weak {len(weak_ds)} "
-                f"val {len(val_ds)}")
+                f"val {len(val_ds)}" + (f"; rank {rank} of {world}"
+                                        if dp is not None else ""))
+    # --batch_size scenes a process, from its shard of the labeled and val
+    # splits (the JAX CLI's cli/train.py:292-302)
     train_loader = PrefetchLoader(
-        Loader(labeled_ds, args.batch_size, seed=args.rng_seed),
+        Loader(labeled_ds, args.batch_size, seed=args.rng_seed,
+               shard_id=rank, num_shards=world),
         num_workers=args.num_workers)
     val_loader = Loader(val_ds, min(16, len(val_ds)), shuffle=False,
-                        drop_last=False)
+                        drop_last=False, shard_id=rank, num_shards=world)
     flags = TrainFlags(
         ema=args.ema, gamma_mixture=args.gamma_mixture, arkit=args.arkit,
         pc_loss=args.pc_loss, use_fitted_mixture=args.use_fitted_mixture,
@@ -281,6 +336,8 @@ def main(argv=None):
         near_threshold=args.near_threshold, far_threshold=args.far_threshold)
     weak_iter = None
     if flags.ema or flags.gamma_mixture or flags.arkit:
+        # not sharded: every process feeds the same weak batches, as the
+        # JAX CLI does (its cli/train.py:297-299)
         weak_iter = endless(PrefetchLoader(
             Loader(weak_ds, args.batch_size, seed=args.rng_seed + 1),
             num_workers=args.num_workers))
@@ -304,14 +361,17 @@ def main(argv=None):
         step_freq=args.step_freq)
     state = TrainState(model, opt_cfg, ema=True)
     start_epoch = args.start_epoch
-    if args.checkpoint_path:
+    if args.checkpoint_path:  # every rank loads the file
         state, ckpt_epoch, _ = load_checkpoint(args.checkpoint_path, state)
         start_epoch = ckpt_epoch + 1
         logger.info(f"resumed from {args.checkpoint_path} at epoch "
                     f"{ckpt_epoch}")
+    if dp is not None:  # every rank starts from rank 0's state
+        parallel.broadcast_state(state)
     train_step = make_train_step(model, cfg, SCANNET_MEAN_SIZES, flags)
     generator = torch.Generator(device).manual_seed(args.rng_seed + 123)
-    profiler = StepProfiler(args.profile, args.log_dir, device)
+    profiler = StepProfiler(args.profile if lead else 0, args.log_dir,
+                            device)
 
     f1, ema_f1, max_f1, max_ema_f1 = 0.0, 0.2, 0.0, 0.2
     global_step = 0
@@ -347,7 +407,8 @@ def main(argv=None):
                                 f"{k} {means[k]:.4f}" for k in
                                 (*SHOWN_STATS, "step_ms", "data_ms")
                                 if k in means))
-                metrics.log(global_step, means, prefix="train")
+                if metrics is not None:
+                    metrics.log(global_step, means, prefix="train")
                 stat_acc, n_acc, data_s, window_t0 = {}, 0, 0.0, now
             t0 = time.perf_counter()
         logger.info(f"epoch {epoch}, total time {time.time() - tic:.2f}s")
@@ -358,22 +419,26 @@ def main(argv=None):
             ema_f1 = evaluate(args, state, val_loader, dataset_config,
                               logger, use_ema=True, metrics=metrics,
                               epoch=epoch)
-            metrics.log(global_step, {"quad_f1": f1, "ema_quad_f1": ema_f1,
-                                      "epoch": epoch}, prefix="eval")
+            if metrics is not None:
+                metrics.log(global_step, {"quad_f1": f1,
+                                          "ema_quad_f1": ema_f1,
+                                          "epoch": epoch}, prefix="eval")
             if f1 > max_f1:
-                save_checkpoint(args.log_dir, "best", state, epoch)
+                if lead:
+                    save_checkpoint(args.log_dir, "best", state, epoch)
                 max_f1 = f1
             if ema_f1 > max_ema_f1:
-                save_checkpoint(args.log_dir, "ema_best", state, epoch)
+                if lead:
+                    save_checkpoint(args.log_dir, "ema_best", state, epoch)
                 max_ema_f1 = ema_f1
-        if epoch % args.save_freq == 0:
+        if lead and epoch % args.save_freq == 0:
             save_checkpoint(args.log_dir, epoch, state, epoch)
 
-    save_checkpoint(args.log_dir, "last", state, args.max_epoch)
-    metrics.close()
+    if lead:
+        save_checkpoint(args.log_dir, "last", state, args.max_epoch)
+        metrics.close()
     logger.info(f"done; best F1 {max_f1:.4f} ema {max_ema_f1:.4f}")
     return max_f1, max_ema_f1
-
 
 if __name__ == "__main__":
     main()

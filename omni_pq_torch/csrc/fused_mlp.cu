@@ -43,7 +43,10 @@
 //   operand, and writes a_{j+1}; every pass writes, for each row tile, the
 //   column sums of its product and of its square; the stats launch adds the
 //   tiles' sums in tile order in double (no atomics: two runs give the same
-//   bits) into mean = S1/N and var = max(0, S2/N - mean^2). Where C0 <= 4
+//   bits) into mean = S1/N and var = max(0, S2/N - mean^2). Under data
+//   parallelism the stats launch writes the layer's sums [S1, S2, N] instead,
+//   the wrapper adds them over the ranks, and mlp_stats_finish_kernel turns
+//   them into mean and var by the same arithmetic. Where C0 <= 4
 //   (sa1: xyz only), pass 0 keeps only the sums and pass 1 recomputes a_1
 //   from x as it loads (C0 FMAs an element, the same order as pass 0, so the
 //   same bits), which halves sa1's scratch. The last pass writes no a_L but
@@ -557,13 +560,24 @@ mlp_pass_kernel(const PassArgs p) {
   }
 }
 
-// mean = S1/N, var = max(0, S2/N - mean^2) from the row tiles' column sums:
-// 32 threads a column each add a contiguous run of tiles in order, in
-// double, then one adds the 32 runs in order. A fixed order: no atomics.
+// mean = S1/N, var = max(0, S2/N - mean^2), in double, rounded to float
+__device__ __forceinline__ void finish_stats(double s1, double s2, double n,
+                                             float* mean, float* var) {
+  const double m = s1 / n;
+  const double v = s2 / n - m * m;
+  *mean = static_cast<float>(m);
+  *var = static_cast<float>(v > 0.0 ? v : 0.0);
+}
+
+// The batch stats of a column from the row tiles' column sums: 32 threads
+// a column each add a contiguous run of tiles in order, in double, then one
+// adds the 32 runs in order. A fixed order: no atomics. With `sums` set,
+// the layer's sums are written there instead, [S1 (C), S2 (C), N], for the
+// wrapper to add over the ranks before mlp_stats_finish_kernel.
 __global__ void __launch_bounds__(1024)
 mlp_stats_kernel(const float* __restrict__ psum, long long tiles, int C,
                  double n, float* __restrict__ mean,
-                 float* __restrict__ var) {
+                 float* __restrict__ var, double* __restrict__ sums) {
   __shared__ double part[2][32][33];
   const int c = blockIdx.x * 32 + threadIdx.x, y = threadIdx.y;
   const long long per = (tiles + 31) / 32;
@@ -585,11 +599,23 @@ mlp_stats_kernel(const float* __restrict__ psum, long long tiles, int C,
       s1 += part[0][g][threadIdx.x];
       s2 += part[1][g][threadIdx.x];
     }
-    const double m = s1 / n;
-    const double v = s2 / n - m * m;
-    mean[c] = static_cast<float>(m);
-    var[c] = static_cast<float>(v > 0.0 ? v : 0.0);
+    if (sums) {
+      sums[c] = s1;
+      sums[C + c] = s2;
+      if (c == 0) sums[2 * C] = n;
+    } else {
+      finish_stats(s1, s2, n, &mean[c], &var[c]);
+    }
   }
+}
+
+// mean and var from the sums mlp_stats_kernel wrote (added over the ranks)
+__global__ void mlp_stats_finish_kernel(const double* __restrict__ sums,
+                                        int C, float* __restrict__ mean,
+                                        float* __restrict__ var) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < C) finish_stats(sums[c], sums[C + c], sums[2 * C], &mean[c],
+                          &var[c]);
 }
 
 // pooled[centre, c] from the extremes of its nseg segments; kBf16: the
@@ -767,14 +793,24 @@ extern "C" int mlp_pass_launch(const float* a, const float* w0, int c0,
 }
 
 // Batch stats of one layer from a pass's column sums over `tiles` row tiles
-// of `n` rows in all.
+// of `n` rows in all: mean and var, or (sums set: 2C+1 doubles) the layer's
+// sums [S1, S2, n] for mlp_stats_finish_launch.
 extern "C" int mlp_stats_launch(const float* psum, long long tiles, int C,
                                 long long n, float* mean, float* var,
-                                cudaStream_t stream) {
-  if (tiles < 1 || C < 1 || n < 1 || !psum || !mean || !var)
+                                double* sums, cudaStream_t stream) {
+  if (tiles < 1 || C < 1 || n < 1 || !psum || (!sums && (!mean || !var)))
     return cudaErrorInvalidValue;
   mlp_stats_kernel<<<(C + 31) / 32, dim3(32, 32), 0, stream>>>(
-      psum, tiles, C, static_cast<double>(n), mean, var);
+      psum, tiles, C, static_cast<double>(n), mean, var, sums);
+  return cudaGetLastError();
+}
+
+// mean and var of one layer from its sums [S1 (C), S2 (C), n] (doubles)
+extern "C" int mlp_stats_finish_launch(const double* sums, int C, float* mean,
+                                       float* var, cudaStream_t stream) {
+  if (C < 1 || !sums || !mean || !var) return cudaErrorInvalidValue;
+  mlp_stats_finish_kernel<<<(C + 255) / 256, 256, 0, stream>>>(sums, C, mean,
+                                                               var);
   return cudaGetLastError();
 }
 

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import ops
+from .. import ops, parallel
 from ..ops import matmul as mm
 
 # flax's momentum convention (new = 0.9 * old + 0.1 * batch), the JAX
@@ -117,8 +117,11 @@ class BatchNorm(nn.BatchNorm1d):
     bias. Eval mode uses the running stats. Train mode uses the batch mean
     and the fast variance max(0, E[x^2] - E[x]^2) over every axis but the
     last (gradients flow through both), and updates the running stats with
-    `update_running_stats`. Keeps nn.BatchNorm1d's parameters and buffers,
-    so its state_dict keys are the reference's."""
+    `update_running_stats`; inside `parallel.data_parallel` those are the
+    global batch's statistics (`parallel.moments`: one all-reduce, its
+    gradient over the ranks too), so every rank's running stats stay
+    equal, as flax's BatchNorm under a mesh. Keeps nn.BatchNorm1d's
+    parameters and buffers, so its state_dict keys are the reference's."""
 
     def __init__(self, channels: int, dtype: Optional[torch.dtype] = None):
         super().__init__(channels, eps=BN_EPS)
@@ -126,7 +129,11 @@ class BatchNorm(nn.BatchNorm1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.promote_types(x.dtype, torch.float32))
-        if self.training:
+        dp = parallel.current() if self.training else None
+        if dp is not None:
+            mean, var = parallel.moments(x, dp)
+            update_running_stats(self, mean.detach(), var.detach())
+        elif self.training:
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dim=dims)
             var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)

@@ -24,6 +24,7 @@ import math
 import torch
 from torch import nn
 
+from .. import parallel
 from ..ops import matmul as mm
 from .pointnet2 import BatchNorm, Conv, linear
 
@@ -32,14 +33,26 @@ def dropout(x: torch.Tensor, p: float, training: bool,
             generator) -> torch.Tensor:
     """flax's nn.Dropout: keep each element with probability 1 - p and scale
     the kept ones by 1 / (1 - p). The mask comes from `generator` (on x's
-    device); train mode with p > 0 and no generator raises."""
+    device); train mode with p > 0 and no generator raises. Inside
+    `parallel.data_parallel` the mask is drawn for the global batch's shape
+    and this rank's rows are kept (`DataParallel.row_ranges`, under the
+    step's `batch_segments`): every rank's generator stays in step, and the
+    masks are a single process's on the global batch."""
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator: the "
                          "masks never come from the global RNG")
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    dp = parallel.current()
+    if dp is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        full = torch.rand((dp.world * x.shape[0],) + tuple(x.shape[1:]),
+                          generator=generator, device=x.device)
+        mask = torch.cat([full[g:g + rows] for g, _, rows in
+                          dp.row_ranges(x.shape[0])])
+    mask = mask < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -63,7 +63,11 @@ _MORE_SIGNATURES = {
                             ctypes.c_void_p],
         "mlp_stats_launch": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                              ctypes.c_longlong, ctypes.c_void_p,
-                             ctypes.c_void_p, ctypes.c_void_p],
+                             ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.c_void_p],
+        "mlp_stats_finish_launch": [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_void_p],
         "mlp_pool_launch": [ctypes.c_void_p, ctypes.c_void_p,
                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -59,9 +59,11 @@ import ctypes
 from typing import NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
 
 from . import cuda
 from .matmul import matmul
+from .. import parallel
 
 # the CUDA kernel's limits: at most this many layers, and 256 threads a block
 MAX_LAYERS = 8
@@ -103,14 +105,21 @@ def plain_mlp_pool(grouped, weights, scales, biases, ra_means, ra_vars,
     ra_* are used when not `train`. Each product runs in `dtype` (its
     output rounded to it), the statistics and the BN in float32 on the
     promoted product, the BN output is rounded to `dtype` before the ReLU.
+    Inside `parallel.data_parallel` the train-mode statistics are the
+    global batch's (`parallel.moments`), and so is their gradient.
     Returns (pooled (B, S, C_L) in `dtype`, means, vars): the batch
     statistics of every layer (train) or () (eval)."""
     x = grouped.to(dtype)
     means, variances = [], []
+    dp = parallel.current() if train else None
     for i, w in enumerate(weights):
         a = matmul(x, w.to(dtype))
         af = a.float()
-        if train:
+        if dp is not None:  # over the global batch, autograd-aware
+            mu, var = parallel.moments(af, dp)
+            means.append(mu)
+            variances.append(var)
+        elif train:
             mu = af.mean(dim=(0, 1, 2))
             mu2 = (af * af).mean(dim=(0, 1, 2))
             var = torch.clamp_min(mu2 - mu * mu, 0.0)
@@ -330,12 +339,15 @@ def _pass_launches(grouped, weights, scales, biases, eps, pooled, dtype,
     statistics are kept. Scratch (stored pre-activations in `dtype`,
     column sums, extremes) comes from torch.empty and is freed as soon as
     no later launch reads it. Returns the batch means and variances (train)
-    or ((), ())."""
+    or ((), ()). Inside `parallel.data_parallel` each layer's statistics are
+    the global batch's: its column sums are added over the ranks between
+    the stats launch and a finishing launch (2 more launches a layer)."""
     dev = grouped.device
     B, S, K, C0 = grouped.shape
     chans = [C0] + [w.shape[1] for w in weights]
     rows = B * S * K
     train = running is None
+    dp = parallel.current() if train else None
     tile_rows, seg = pass_tile(K, dtype)
     tiles = -(-rows // tile_rows)
     empty = lambda *shape, dt=torch.float32: torch.empty(  # noqa: E731
@@ -359,9 +371,21 @@ def _pass_launches(grouped, weights, scales, biases, eps, pooled, dtype,
                      rows, K, out, ext, psum, grouped, weights[0], C0)
         if train:
             mean, var = empty(cout), empty(cout)
-            cuda.launch("fused_mlp", dev, psum.data_ptr(), tiles, cout, rows,
-                        mean.data_ptr(), var.data_ptr(),
-                        entry="mlp_stats_launch")
+            if dp is None:
+                cuda.launch("fused_mlp", dev, psum.data_ptr(), tiles, cout,
+                            rows, mean.data_ptr(), var.data_ptr(), None,
+                            entry="mlp_stats_launch")
+            else:
+                # the layer's [S1, S2, n] summed over the ranks between the
+                # reduction and the finish: the next pass's BN is global
+                sums = empty(2 * cout + 1, dt=torch.float64)
+                cuda.launch("fused_mlp", dev, psum.data_ptr(), tiles, cout,
+                            rows, None, None, sums.data_ptr(),
+                            entry="mlp_stats_launch")
+                dist.all_reduce(sums, group=dp.group)
+                cuda.launch("fused_mlp", dev, sums.data_ptr(), cout,
+                            mean.data_ptr(), var.data_ptr(),
+                            entry="mlp_stats_finish_launch")
             means.append(mean)
             variances.append(var)
             muls.append(bn_mul(var, scales[j], eps))
@@ -397,7 +421,8 @@ def kernel_mlp_pool(grouped, weights, scales, biases, ra_means, ra_vars,
 class _FusedMLPPool(torch.autograd.Function):
     """Forward: the kernel (card) or the plain version (CPU). Backward:
     autograd through `plain_mlp_pool` recomputed from the saved inputs, in
-    the forward's dtype."""
+    the forward's dtype and data-parallel context (its statistics and their
+    gradient over the global batch)."""
 
     @staticmethod
     def forward(ctx, L: int, train: bool, eps: float, dtype, grouped, *flat):
@@ -408,6 +433,7 @@ class _FusedMLPPool(torch.autograd.Function):
                                       dtype)
         ctx.save_for_backward(grouped, *flat)
         ctx.cfg = (L, train, eps, dtype)
+        ctx.dp = parallel.current()
         ctx.mark_non_differentiable(*means, *variances)
         ctx.set_materialize_grads(False)
         return (pooled, *means, *variances)
@@ -423,7 +449,8 @@ class _FusedMLPPool(torch.autograd.Function):
         grads = [None] * (len(saved))
         wanted = [i for i, t in enumerate(inputs) if t.requires_grad]
         if g_pooled is not None and wanted:
-            with torch.enable_grad():
+            # the forward's data-parallel context: global statistics
+            with torch.enable_grad(), parallel.using(ctx.dp):
                 pooled, _, _ = plain_mlp_pool(
                     inputs[0], inputs[1:1 + L], inputs[1 + L:1 + 2 * L],
                     inputs[1 + 2 * L:], rm, rv, train, eps, dtype)
@@ -447,7 +474,8 @@ def fused_mlp_pool(grouped, weights, scales, biases, ra_means=(), ra_vars=(),
     on the card adds one to `fused_mlp_pool.launches` (an eval-mode call is
     one chained-kernel launch where its tile fits in shared memory, else L
     passes (L - 1 where float32 recomputes a_1) and a pool launch; a
-    train-mode call 2L+1 launches)."""
+    train-mode call 2L+1 launches, 3L+1 inside `parallel.data_parallel`,
+    whose batch statistics are the global batch's)."""
     L = len(weights)
     ra = () if train else (*ra_means, *ra_vars)
     out = _FusedMLPPool.apply(L, bool(train), float(eps), dtype, grouped,

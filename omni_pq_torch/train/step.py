@@ -23,6 +23,19 @@ docs/SEMI_SUP.md. The student computes at its config's compute_dtype;
 float32 EMA parameters and BN state (`models.with_compute_dtype`), and its
 end points go to the consistency loss in float32, as the JAX step casts
 them; losses stay float32.
+
+Inside `parallel.data_parallel` (a process group of several ranks, each
+with its local batch) the step computes the single-process step on the
+global batch, as the JAX step does under a mesh: the forwards take global
+BatchNorm statistics and global dropout masks (the local double batch is
+declared as its [labeled | weak] segments); the student's and teacher's end
+points and both batches are gathered to every rank (`parallel.gather_rows`,
+rows [L_0 L_1 ... | W_0 W_1 ...]), so every loss module, normaliser, the
+gamma draw and every stat run unchanged on the global batch, bitwise the
+same on every rank; after the backward, `parallel.all_reduce_grads`
+averages the gradients, which divides out the factor `world` that the
+gather's backward puts on each rank's gradient; the clip, AdamW and the EMA
+update then run on equal gradients, so every rank's state stays equal.
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import ModelConfig
 from ..infer import eval_forward
 from ..models.pointnet2 import with_compute_dtype
@@ -127,15 +141,27 @@ def make_train_step(model, cfg: ModelConfig, mean_size_arr,
             raise ValueError("flags.ema needs a TrainState with ema=True")
         B = labeled["point_clouds"].shape[0]
         inputs = labeled["point_clouds"]
+        segments = (B,)
         if double:
             inputs = torch.cat([inputs, weak["point_clouds"]])
+            segments = (B, weak["point_clouds"].shape[0])
         model.train()
-        ep = model(inputs, generator=generator)
-        if flags.ema:
-            ema_ep = _teacher_forward(
-                state.ema_model, torch.cat([labeled["ema_point_clouds"],
-                                            weak["ema_point_clouds"]]),
-                generator)
+        with parallel.batch_segments(*segments):
+            ep = model(inputs, generator=generator)
+            if flags.ema:
+                ema_ep = _teacher_forward(
+                    state.ema_model, torch.cat([labeled["ema_point_clouds"],
+                                                weak["ema_point_clouds"]]),
+                    generator)
+        dp = parallel.current()
+        if dp is not None:  # the losses see the global batch
+            ep = parallel.gather_rows(ep, segments)
+            if flags.ema:
+                ema_ep = parallel.gather_rows(ema_ep, segments)
+            labeled = parallel.gather_rows(labeled)
+            if double:
+                weak = parallel.gather_rows(weak)
+            B *= dp.world
 
         # 1. supervised loss on the labeled half
         merged = {k: v[:B] for k, v in ep.items()}
@@ -188,6 +214,8 @@ def make_train_step(model, cfg: ModelConfig, mean_size_arr,
         stats["total_loss"] = total
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if dp is not None:  # the mean over ranks: the global gradient
+            parallel.all_reduce_grads(model.parameters())
         with torch.no_grad():
             stats["grad_norm"] = global_norm(
                 p.grad for p in model.parameters() if p.grad is not None)

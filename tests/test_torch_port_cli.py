@@ -87,10 +87,8 @@ def test_parse_option_matches_jax(argv, is_eval):
     assert got == want
 
 
-@pytest.mark.parametrize("argv", [
-    ["--eval_quad_topk", "64"], ["--threefry"], ["--multihost"],
-    ["--coordinator_address", "localhost:1234"], ["--num_processes", "2"],
-    ["--process_id", "0"]])
+@pytest.mark.parametrize("argv", [["--eval_quad_topk", "64"],
+                                  ["--threefry"]])
 def test_refused_flags(argv, capsys):
     """The JAX flags the port keeps for scripts but refuses when set."""
     with pytest.raises(SystemExit):
@@ -98,6 +96,18 @@ def test_refused_flags(argv, capsys):
     assert "not supported by the port" in capsys.readouterr().err
     jargs.parse_option(argv)  # the JAX CLI takes them
     targs.parse_option(["--eval_quad_topk", "0"])  # defaults pass
+
+
+@pytest.mark.parametrize("argv", [
+    ["--multihost"], ["--coordinator_address", "localhost:1234"],
+    ["--num_processes", "2"], ["--process_id", "0"]])
+def test_multihost_flags_parse(argv):
+    """The data-parallel flags parse as the JAX CLI's (their use:
+    tests/test_torch_port_parallel.py)."""
+    argv = argv + ["--log_dir", "log/x"]
+    got = vars(targs.parse_option(argv))
+    assert got.pop("device") == "cuda"
+    assert got == vars(jargs.parse_option(argv))
 
 
 def test_evaluate_matches_jax(scannet, tmp_path):

@@ -18,7 +18,9 @@ backward on the card equals the CPU's within the error bound of a sum
 taken in another order (index_add_ adds in no fixed order on the card).
 `ball_query_group_feats` (its feature rows a byte copy)
 equals its plain version bitwise in float32 and bfloat16, and its backward
-the CPU's to 1e-6 of the gradient's norm. One full-width semi-supervised step runs on the card
+the CPU's to 1e-6 of the gradient's norm. Under a world-1 process group
+the fused train mode's statistics, added over the ranks between two
+launches, are bitwise those without a group. One full-width semi-supervised step runs on the card
 with finite stats and the launch counts of its two forwards.
 """
 import dataclasses
@@ -511,6 +513,34 @@ def test_fused_mlp_bf16_wrapper_counts_and_checks(dev):
     with pytest.raises(ValueError, match="K % 16"):
         ops.fused_mlp_pool(grouped[:, :, :24].contiguous(), ws, ss, bs, rm,
                            rv, train=False, dtype=bf16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_train_stats_over_a_world_one_group(dev, dtype):
+    """Inside parallel.data_parallel the train mode adds each layer's
+    column sums over the ranks between its stats launch and a finishing
+    launch; on a world-1 group (gloo, card tensors) that sum is the
+    identity, so the pooled output and the statistics are bitwise those of
+    the launches without a group."""
+    import socket
+    import torch.distributed as dist
+    from omni_pq_torch import parallel
+    args = _fused_inputs("sa2", dev, table=FUSED_BF16_CASES)
+    want = kernel_mlp_pool(*args, True, 1e-5, dtype)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        with parallel.data_parallel():
+            got = kernel_mlp_pool(*args, True, 1e-5, dtype)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1] + got[2], want[1] + want[2]):
+        assert torch.equal(a, b)
 
 
 def test_bf16_products_sum_in_float32_on_card(dev):
