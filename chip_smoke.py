@@ -148,6 +148,35 @@ when every phase passed:
      alone writes the run's files, both ranks log the same losses and F1,
      and cli.eval in one process on its epoch-1 checkpoint gives the
      in-loop F1.
+ 19. the module surface off the PQTransformer's path, full widths, float32:
+     (a) SAModuleMSG (sa1's widths in two branches: 2048 centres, radii
+     0.2 / 0.4, nsamples 64 / 32, mlps 128-128-256 twice) on phase 3's
+     scenes, eval at B=16 and forward + backward at B=3: 1 FPS, 2 idx-only
+     ball-query and 0 ball-query-group launches a call, outputs and running
+     stats equal to the plain path, gradients within SURFACE_GRAD_REL of
+     their norm; ms (events) and device ms of the call and of each
+     ball-query launch beside its bound; (b) LFPModuleMSG (sa2's 1024
+     centres with 256 channels onto sa1's 2048 with a 256-channel skip,
+     radii 0.4 / 0.8, nsamples 32 / 16, mlps 256-256 twice, post 256), B=16,
+     at least one centre with no hit (one moved outside the room if the
+     data gives none): 2 ball-query-group launches, equal to the plain
+     path; (c) GroupAllModule (sa4's 256 centres x 256 channels, mlp
+     256-512-1024), PointsObjClsModule on the 1024 x 288 seeds,
+     general_sampling at its top 256 and self-type attention (256 queries,
+     288 wide, 8 heads), B=16, within SURFACE_CPU_REL of the CPU (sampling
+     exact); (d) remat_sa on phase 8's unfused supervised step, against two
+     steps without it from the same state: the loss within their gap,
+     gradients and stats within DP_W1_TOL, BN running stats equal (moved
+     once); ms/step and peak memory in turns, a profile of each step
+     (kernel time, busy share); the fused route's launches unchanged by
+     it; (e) get_loss_mean_teacher (lambda_teacher 0 and 1)
+     on phase 12's first student and teacher end points, and
+     distance_loss_gamma_mixture on phase 3's forward (its decoded quads;
+     points within WALL_BAND of a ground-truth wall quad's plane labelled
+     wall), each against the same call on CPU copies within the CPU tests'
+     bounds (the distance loss's crossover root: as far from the CPU's as
+     the float64 roots of the two fitted mixtures, plus each side's float32
+     rounding, crossover64).
 The second-last line is the kernels JSON, the last the device JSON. Details
 go to chiprun_out/chip_smoke.json, chiprun_out/chip_smoke_profile.txt,
 chiprun_out/chip_smoke_train_profile.txt,
@@ -286,6 +315,21 @@ DP_FUSED_STATS_REL = 1e-5
 # 18c: the train CLI's fake ScanNet tree (2 steps of 3 + 3 a rank; a val
 # shard of 2 scans a rank, no padding)
 DP_CLI_TRAIN, DP_CLI_VAL = 12, 4
+# phase 19: no reference script names shapes for these modules, so they take
+# the full ModelConfig()'s widths at the matching layers. 19a SAModuleMSG:
+# sa1's in two branches (npoint, radii, nsamples, mlps)
+MSG_ARGS = (2048, (0.2, 0.4), (64, 32), ((128, 128, 256), (128, 128, 256)))
+# 19b LFPModuleMSG: sa2's 1024 centres (256 channels) onto sa1's 2048 (a
+# 256-channel skip): (radii, nsamples, in 1, in 2, mlps, post_mlp)
+LFP_ARGS = ((0.4, 0.8), (32, 16), 256, 256, ((256, 256), (256, 256)), (256,))
+# 19a train mode, the kernel path against the plain one: gradients relative
+# to their norm (gather's backward adds in no fixed order on the card)
+SURFACE_GRAD_REL = 1e-6
+# 19c: the card against the same module on the CPU, the largest gap over
+# the largest magnitude (float32 products summed in other orders)
+SURFACE_CPU_REL = 1e-5
+# 19e: points this close to a ground-truth wall quad's plane are wall
+WALL_BAND = 0.02
 
 
 def check(cond, msg):
@@ -1975,7 +2019,8 @@ def semi_stepper(cfg, dev, labeled, weak):
 
 
 def step_reading(model, state, stats) -> dict:
-    """A step's stats, gradients and BN running stats (student, teacher)."""
+    """A step's stats, gradients and BN running stats (student, and the
+    teacher where the state has one)."""
     return dict(
         stats={k: float(v) for k, v in stats.items()},
         grads={n: p.grad.detach().clone()
@@ -1983,7 +2028,7 @@ def step_reading(model, state, stats) -> dict:
         buffers={f"{who}.{n}": b.detach().clone()
                  for who, m in (("student", model),
                                 ("teacher", state.ema_model))
-                 for n, b in m.named_buffers()
+                 if m is not None for n, b in m.named_buffers()
                  if n.endswith(("running_mean", "running_var"))})
 
 
@@ -2360,6 +2405,572 @@ def dp_cli_phase(card):
                 step_ms=[r["train/step_ms"] for r in train])
 
 
+# -- phase 19: the module surface off the PQTransformer's path ---------------
+
+def surface_module(module, dev, seed: int):
+    """`module` with random weights from `seed` (infer.init_weights) and its
+    BatchNorms' affine parameters and running stats drawn from numpy (not
+    1/0, 0/1), on `dev`."""
+    import torch
+    from omni_pq_torch.infer import init_weights
+    from omni_pq_torch.models.pointnet2 import BatchNorm
+    init_weights(module, torch.Generator().manual_seed(seed))
+    r = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                c = m.num_features
+                for t, v in ((m.weight, r.uniform(0.5, 1.5, c)),
+                             (m.bias, r.normal(0, 0.1, c)),
+                             (m.running_mean, r.normal(0, 0.1, c)),
+                             (m.running_var, r.uniform(0.5, 1.5, c))):
+                    t.copy_(torch.from_numpy(v))
+    return module.to(dev)
+
+
+def surface_counted():
+    from omni_pq_torch import ops
+    return {"fps": ops.fps, "ball_query": ops.ball_query,
+            "ball_query_group": ops.ball_query_group,
+            "fused_mlp_pool": ops.fused_mlp_pool}
+
+
+def largest_gap(got, want) -> float:
+    return max((float((a.double() - b.double()).abs().max())
+                for a, b in zip(got, want)), default=0.0)
+
+
+def call_times(fn, card, what):
+    """Events ms and profiler device ms (every kernel) of a warmed call."""
+    ms = time_ms(fn, reps=5)
+    dms = device_ms(fn, r".", reps=3)
+    check(dms is not None, f"{what}: the profiler recorded no kernel")
+    return ms, dms
+
+
+def msg_phase(pc, card):
+    """Phase 19a: SAModuleMSG at sa1's widths in two branches, B=16 eval
+    then B=3 train, kernels against the plain versions."""
+    import contextlib
+    import copy
+    import torch
+    from omni_pq_torch import ops
+    from omni_pq_torch.models import SAModuleMSG
+    dev = pc.device
+    counted = surface_counted()
+    npoint, radii, nsamples, mlps = MSG_ARGS
+    msg = surface_module(SAModuleMSG(npoint, radii, nsamples, 0, mlps,
+                                     normalize_xyz=True), dev, SEED).eval()
+    xyz = pc[..., :3].contiguous()
+    with torch.no_grad():
+        msg(xyz)  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts(counted)
+        out = msg(xyz)
+        torch.cuda.synchronize()
+        launches = fused_launch_counts(counted)
+        want = {"fps": 1, "ball_query": 2, "ball_query_group": 0,
+                "fused_mlp_pool": 0}
+        check(launches == want, f"SAModuleMSG eval launches {launches}, "
+              f"expected {want}")
+        with ops.plain_versions():
+            ref = msg(xyz)
+        eval_gap = largest_gap(out, ref)
+        check(eval_gap == 0.0, f"SAModuleMSG eval: kernel path |diff| "
+              f"{eval_gap} from the plain path")
+        ms, dms = call_times(lambda: msg(xyz), card, "SAModuleMSG eval")
+        with ops.plain_versions():
+            plain_ms = time_ms(lambda: msg(xyz), reps=1, warmup=0)
+    print(f"[surface] 19a SAModuleMSG eval B={xyz.shape[0]} N="
+          f"{xyz.shape[1]} -> {npoint}, radii {radii}, nsamples {nsamples}, "
+          f"mlps {mlps}: launches {launches}; output {tuple(out[1].shape)} "
+          f"equal to the plain path (largest |diff| {eval_gap}); "
+          f"{ms:.3f} ms (events), {dms:.3f} ms device, plain path "
+          f"{plain_ms:.1f} ms [{card}]")
+    # each ball_query launch of the call, at its own shape
+    rows = []
+    new_xyz = out[0]
+    for r, k in zip(radii, nsamples):
+        idx = ops.ball_query(r, k, xyz, new_xyz)
+        idx_p = ops.ball_query_ref(r, k, xyz, new_xyz)
+        check(torch.equal(idx, idx_p), f"ball_query r{r} K{k}: "
+              f"{int((idx != idx_p).sum())} indices differ")
+        bnd, by, tests, points = bq_bound(r, k, xyz, new_xyz, idx_p, 4)
+        row = {"call": f"msg r{r}",
+               "shape": f"B{xyz.shape[0]} N{xyz.shape[1]} S{npoint} K{k} r{r}",
+               "max_abs_err": 0, "box_tests": tests, "points_tested": points,
+               "ms": time_ms(lambda: ops.ball_query(r, k, xyz, new_xyz),
+                             reps=10),
+               "device_ms": device_ms(
+                   lambda: ops.ball_query(r, k, xyz, new_xyz),
+                   KERNEL_NAMES["ball_query"]),
+               "plain_ms": time_ms(
+                   lambda: ops.ball_query_ref(r, k, xyz, new_xyz), reps=2),
+               "bound_ms": bnd, "bound_by": by}
+        check(row["device_ms"] is not None, f"ball_query r{r}: the profiler "
+              "recorded none of its kernels")
+        rows.append(row)
+        print(f"[surface] 19a ball_query launch {row['shape']}: kernel "
+              f"{row['ms']:.4f} ms (device {row['device_ms']:.4f})  plain "
+              f"{row['plain_ms']:.3f} ms  bound {bnd:.4f} ms ({by}) "
+              f"[{card}]")
+    del out, ref
+    # train mode at B=3 (phase 8's scenes), forward + backward
+    x3 = xyz[:TRAIN_B].contiguous()
+    runs = []
+    for plain in (False, True):
+        m = copy.deepcopy(msg).train()
+        x = x3.clone().requires_grad_()
+        reset_launch_counts(counted)
+        with ops.plain_versions() if plain else contextlib.nullcontext():
+            res = m(x)
+            gen = torch.Generator(dev).manual_seed(SEED)
+            (res[1] * torch.randn(res[1].shape, generator=gen,
+                                  device=dev)).sum().backward()
+        torch.cuda.synchronize()
+        runs.append(dict(
+            out=[t.detach() for t in res], launches=fused_launch_counts(
+                counted),
+            grads={**{n: p.grad for n, p in m.named_parameters()},
+                   "xyz": x.grad},
+            buffers=dict(m.named_buffers())))
+    (kern, plain) = runs
+    check(kern["launches"] == want, f"SAModuleMSG train launches "
+          f"{kern['launches']}, expected {want}")
+    train_gap = largest_gap(kern["out"], plain["out"])
+    check(train_gap == 0.0, f"SAModuleMSG train: outputs |diff| {train_gap}")
+    buf_gap = largest_gap(kern["buffers"].values(), plain["buffers"].values())
+    check(buf_gap == 0.0, f"SAModuleMSG train: running stats |diff| "
+          f"{buf_gap}")
+    grad_gap = max(float((kern["grads"][n] - g).abs().max())
+                   / max(float(g.norm()), 1e-30)
+                   for n, g in plain["grads"].items())
+    check(grad_gap <= SURFACE_GRAD_REL, f"SAModuleMSG train: gradients "
+          f"{grad_gap:.3e} of their norm from the plain path")
+    m = copy.deepcopy(msg).train()
+    x = x3.clone().requires_grad_()
+
+    def train_call():
+        m(x)[1].sum().backward()
+    train_ms = time_ms(train_call, reps=3)
+    print(f"[surface] 19a SAModuleMSG train B={TRAIN_B}: launches "
+          f"{kern['launches']}, outputs and running stats equal to the plain "
+          f"path, gradients (parameters and xyz) {grad_gap:.3e} of their "
+          f"norm (bound {SURFACE_GRAD_REL}); forward + backward "
+          f"{train_ms:.3f} ms (events) [{card}]")
+    return dict(launches=launches, eval_ms=ms, eval_device_ms=dms,
+                plain_ms=plain_ms, train_launches=kern["launches"],
+                train_grad_gap=grad_gap, train_ms=train_ms), rows
+
+
+def lfp_phase(ep, card):
+    """Phase 19b: LFPModuleMSG from sa2's 1024 centres onto sa1's 2048, at
+    least one centre with no point in its ball, kernels against plain."""
+    import torch
+    from omni_pq_torch import ops
+    from omni_pq_torch.models import LFPModuleMSG
+    from omni_pq_torch.ops.reference import radius_sq
+    radii, nsamples, c1, c2, mlps, post = LFP_ARGS
+    xyz1, xyz2 = ep["sa2_xyz"], ep["sa1_xyz"].clone()
+    dev = xyz1.device
+    f2 = ep["sa1_features"]
+    f1 = torch.randn(xyz1.shape[:2] + (c1,), generator=torch.Generator(
+        dev).manual_seed(SEED), device=dev)
+
+    def no_hit():
+        d2 = torch.stack([torch.cdist(xyz2[b].double(), xyz1[b].double())
+                          for b in range(xyz2.shape[0])]).amin(-1) ** 2
+        return {r: int((d2 >= radius_sq(r)).sum()) for r in radii}
+    misses = no_hit()
+    moved = not any(misses.values())
+    if moved:  # the data gives none: one centre far outside the room
+        xyz2[0, -1] += 100.0
+        misses = no_hit()
+    check(sum(misses.values()) >= 1, f"LFPModuleMSG: no centre without a "
+          f"hit ({misses})")
+    lfp = surface_module(LFPModuleMSG(radii, nsamples, c1, c2, mlps, post),
+                         dev, SEED + 1).eval()
+    counted = surface_counted()
+    with torch.no_grad():
+        lfp(xyz2, xyz1, f2, f1)
+        torch.cuda.synchronize()
+        reset_launch_counts(counted)
+        out = lfp(xyz2, xyz1, f2, f1)
+        torch.cuda.synchronize()
+        launches = fused_launch_counts(counted)
+        want = {"fps": 0, "ball_query": 0, "ball_query_group": 2,
+                "fused_mlp_pool": 0}
+        check(launches == want, f"LFPModuleMSG launches {launches}, "
+              f"expected {want}")
+        with ops.plain_versions():
+            ref = lfp(xyz2, xyz1, f2, f1)
+        gap = largest_gap([out], [ref])
+        check(gap == 0.0, f"LFPModuleMSG: kernel path |diff| {gap}")
+        check(bool(torch.isfinite(out).all()), "LFPModuleMSG: non-finite")
+        ms, dms = call_times(lambda: lfp(xyz2, xyz1, f2, f1), card,
+                             "LFPModuleMSG")
+        bq_dms = device_ms(lambda: lfp(xyz2, xyz1, f2, f1),
+                           KERNEL_NAMES["ball_query"])
+    print(f"[surface] 19b LFPModuleMSG B={xyz2.shape[0]}: {xyz1.shape[1]} "
+          f"centres x {c1} channels onto {xyz2.shape[1]} (skip {c2}), radii "
+          f"{radii}, nsamples {nsamples}: no-hit centres {misses}"
+          f"{' (one centre moved outside the room)' if moved else ''}; "
+          f"launches {launches}; output {tuple(out.shape)} equal to the "
+          f"plain path (largest |diff| {gap}); {ms:.3f} ms (events), "
+          f"{dms:.3f} ms device, of which ball_query_group {bq_dms:.4f} ms "
+          f"[{card}]")
+    return dict(launches=launches, no_hit=misses, moved_centre=moved,
+                ms=ms, device_ms=dms, ball_query_group_device_ms=bq_dms)
+
+
+def cpu_gap(fn, args) -> float:
+    """Largest |card - CPU| of fn's outputs over the CPU's largest
+    magnitude, fn (a module or function) on the same inputs."""
+    import copy
+    import torch
+    with torch.no_grad():
+        got = fn(*args)
+        cpu_fn = (copy.deepcopy(fn).cpu() if isinstance(fn, torch.nn.Module)
+                  else fn)
+        want = cpu_fn(*[a.cpu() for a in args])
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    scale = max(float(w.double().abs().max()) for w in want)
+    return largest_gap([g.cpu() for g in got], want) / max(scale, 1e-30)
+
+
+def small_modules_phase(ep, card):
+    """Phase 19c: GroupAllModule, PointsObjClsModule, general_sampling and
+    self-type attention at full width, B=16, against the CPU."""
+    import torch
+    from omni_pq_torch.models import (GroupAllModule, MultiHeadAttention,
+                                      PointsObjClsModule, general_sampling)
+    dev = ep["seed_xyz"].device
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
+    hd = ep["seed_features"].shape[-1]
+    feats4 = torch.randn(ep["sa4_xyz"].shape[:2] + (256,), generator=gen,
+                         device=dev)
+    group_all = surface_module(GroupAllModule(256, (256, 512, 1024)), dev,
+                               SEED + 2).eval()
+    obj_cls = surface_module(PointsObjClsModule(hd), dev, SEED + 3).eval()
+    mha = surface_module(MultiHeadAttention(hd, 8, attention_type="self"),
+                         dev, SEED + 4).eval()
+    with torch.no_grad():
+        logits = obj_cls(ep["seed_features"])
+    # the kps variant's sampling: the top-scoring seeds, as many as the
+    # object queries
+    inds = torch.topk(logits[..., 0], ep["cluster_feature"].shape[1],
+                      dim=-1).indices.to(torch.int32)
+    cases = {
+        "GroupAllModule": (group_all, (ep["sa4_xyz"], feats4)),
+        "PointsObjClsModule": (obj_cls, (ep["seed_features"],)),
+        "general_sampling": (general_sampling,
+                             (ep["seed_xyz"], ep["seed_features"], inds)),
+        "MultiHeadAttention(self)": (mha, (ep["cluster_feature"],
+                                           ep["seed_features"],
+                                           ep["seed_features"])),
+    }
+    out = {}
+    for name, (fn, args) in cases.items():
+        gap = cpu_gap(fn, args)
+        with torch.no_grad():
+            ms = time_ms(lambda: fn(*args), reps=5)
+        bound = 0.0 if name == "general_sampling" else SURFACE_CPU_REL
+        check(gap <= bound, f"{name}: card {gap:.3e} of the largest "
+              f"magnitude from the CPU (bound {bound})")
+        out[name] = dict(cpu_gap=gap, ms=ms,
+                         shapes=[tuple(a.shape) for a in args])
+        print(f"[surface] 19c {name} {out[name]['shapes']}: card against "
+              f"CPU {gap:.3e} of the largest magnitude (bound {bound}); "
+              f"{ms:.3f} ms (events) [{card}]")
+    return out
+
+
+def remat_phase(cfg, dev, card):
+    """Phase 19d: phase 8's unfused supervised step, twice without
+    remat_sa and once with it from the same state; the fused route's
+    launches with and without it."""
+    import torch
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.data import make_batch
+    from omni_pq_torch.infer import build_model
+    from omni_pq_torch.train import (OptimizerConfig, TrainState,
+                                     batch_to_tensors, make_train_step)
+    labeled = batch_to_tensors(
+        make_batch(np.random.default_rng(SEED), TRAIN_B, cfg.num_points), dev)
+    counted = surface_counted()
+
+    def stepper(c):
+        model = build_model(c, dev, seed=SEED)
+        state = TrainState(model, OptimizerConfig())
+        step = make_train_step(model, c, SCANNET_MEAN_SIZES)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        return model, state, lambda: step(state, labeled, generator=gen)
+
+    runs, readings = {}, {}
+    for tag, remat in (("plain_a", False), ("plain_b", False),
+                       ("remat", True)):
+        model, state, run = stepper(dataclasses.replace(cfg, remat_sa=remat))
+        reset_launch_counts(counted)
+        st = run()
+        torch.cuda.synchronize()
+        readings[tag] = step_reading(model, state, st)
+        readings[tag]["launches"] = fused_launch_counts(counted)
+        runs[tag] = run
+        del model, state, st
+    del runs["plain_b"]
+    want = {"fps": 6, "ball_query": 0, "ball_query_group": 5,
+            "fused_mlp_pool": 0}
+    for tag, r in readings.items():
+        check(r["launches"] == want, f"19d {tag} step launches "
+              f"{r['launches']}, expected {want}")
+    noise = reading_gaps(readings["plain_b"], readings["plain_a"])
+    gap = reading_gaps(readings["remat"], readings["plain_a"])
+    loss = {t: readings[t]["stats"]["total_loss"] for t in readings}
+    loss_noise = abs(loss["plain_b"] - loss["plain_a"])
+    print(f"[surface] 19d remat_sa step against the step without it: "
+          f"total_loss {loss['remat']!r} vs {loss['plain_a']!r} (two steps "
+          f"without it: {loss['plain_b']!r}); stats {gap['stats']:.3e}, "
+          f"gradients {gap['grads']:.3e} of the norm, BN running stats "
+          f"{gap['buffers']:.3e}; two steps without it: {noise['stats']:.3e}"
+          f", {noise['grads']:.3e}, {noise['buffers']:.3e} (bounds: the "
+          f"loss within the two plain steps' gap, gradients and stats "
+          f"{DP_W1_TOL['grads']}, {DP_W1_TOL['stats']}, buffers 0)")
+    check(abs(loss["remat"] - loss["plain_a"]) <= loss_noise,
+          f"remat_sa: total_loss {loss['remat']} vs {loss['plain_a']}")
+    check(gap["grads"] <= DP_W1_TOL["grads"] and gap["stats"]
+          <= DP_W1_TOL["stats"], f"remat_sa step: gaps {gap}")
+    check(gap["buffers"] == 0.0, f"remat_sa step: BN running stats "
+          f"{gap['buffers']} from the step without it: not moved once")
+    del readings
+    # ms/step and peak memory in turns: plain, remat, remat, plain
+    times = {"plain_a": [], "remat": []}
+    peaks = {"plain_a": [], "remat": []}
+    for tag in ("plain_a", "remat", "remat", "plain_a"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        times[tag].append(wall_ms_per_call(runs[tag], reps=3))
+        peaks[tag].append((torch.cuda.max_memory_allocated(dev), base))
+    prof = {}
+    for tag in times:
+        prof[tag], _ = profile_step(runs[tag], {"fps_kernel": 6,
+                                                "ball_query_kernel": 5},
+                                    float(np.mean(times[tag])))
+        print(f"[surface] 19d {'remat_sa' if tag == 'remat' else 'plain'} "
+              f"profile: {prof[tag]['line']}")
+        print(f"[surface] 19d {'remat_sa' if tag == 'remat' else 'plain'} "
+              f"step B={TRAIN_B}: {np.mean(times[tag]):.3f} ms/step "
+              f"({[round(t, 1) for t in times[tag]]}), peak memory "
+              f"{[round(p / 2**30, 3) for p, _ in peaks[tag]]} GiB, of which "
+              f"above the memory held before the step "
+              f"{[round((p - b) / 2**30, 3) for p, b in peaks[tag]]} GiB "
+              f"[{card}]")
+    del runs
+    # the fused route: remat_sa changes no launch count
+    fcfg = dataclasses.replace(cfg, fused_sa=True)
+    fused = {}
+    for remat in (False, True):
+        model, state, run = stepper(dataclasses.replace(fcfg, remat_sa=remat))
+        reset_launch_counts(counted)
+        run()
+        torch.cuda.synchronize()
+        fused[remat] = fused_launch_counts(counted)
+        del model, state, run
+    check(fused[True] == fused[False] and fused[False]["fused_mlp_pool"] == 4,
+          f"fused_sa: launches with remat_sa {fused[True]}, without "
+          f"{fused[False]}")
+    print(f"[surface] 19d fused_sa step launches with and without remat_sa: "
+          f"{fused[True]} (unchanged)")
+    return dict(gap=gap, noise=noise, total_loss=loss, step_ms=times,
+                peak_bytes=peaks, fused_launches=fused[True],
+                profile={k: {kk: v[kk] for kk in (
+                    "device_ms", "step_ms", "busy_share", "complete")}
+                    for k, v in prof.items()})
+
+
+def surface_losses_phase(cfg, dev, card, batch, ep, pred_corners):
+    """Phase 19e: the legacy teacher and distance losses on the card against
+    the same calls on CPU copies."""
+    import torch
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.data import make_batch
+    from omni_pq_torch.infer import build_model
+    from omni_pq_torch.losses import (distance_loss_gamma_mixture,
+                                      get_loss_mean_teacher)
+    from omni_pq_torch.losses import distance as tdist
+    from omni_pq_torch.losses.gamma import gamma_mixture_em
+    from omni_pq_torch.train import (OptimizerConfig, TrainState,
+                                     batch_to_tensors)
+    # the mean-teacher loss on phase 12's student and teacher end points
+    # (their first step's forwards, the labeled scenes)
+    labeled = batch_to_tensors(
+        make_batch(np.random.default_rng(SEED), TRAIN_B, cfg.num_points), dev)
+    model = build_model(cfg, dev, seed=SEED)
+    teacher = TrainState(model, OptimizerConfig(), ema=True).ema_model
+    gen = torch.Generator(dev).manual_seed(SEED)
+    with torch.no_grad():
+        ep_s = model.train()(labeled["point_clouds"], generator=gen)
+        ep_t = teacher.train()(labeled["ema_point_clouds"], generator=gen)
+    model.eval(), teacher.eval()
+    out = {}
+    for lam in (0.0, 1.0):
+        res = []
+        for d in (dev, torch.device("cpu")):
+            with torch.no_grad():
+                res.append(get_loss_mean_teacher(
+                    {**{k: v.to(d) for k, v in ep_s.items()},
+                     **{k: v.to(d) for k, v in labeled.items()}},
+                    {k: v.to(d) for k, v in ep_t.items()}, SCANNET_MEAN_SIZES,
+                    num_layer=cfg.num_decoder_layers, lambda_teacher=lam))
+        (loss, stats), (loss_c, stats_c) = res
+        check(set(stats) == set(stats_c), "mean-teacher stats differ")
+        worst = max(abs(float(stats[k]) - float(v))
+                    / (1e-5 * abs(float(v)) + 1e-6)
+                    for k, v in stats_c.items())
+        check(worst <= 1.0, f"get_loss_mean_teacher(lambda_teacher={lam}): "
+              f"a stat {worst:.2f} times its bound from the CPU's")
+        out[f"mean_teacher_{lam}"] = dict(
+            loss=float(loss), loss_cpu=float(loss_c),
+            teacher_loss=float(stats["teacher_loss"]),
+            gt_loss=float(stats["gt_loss"]), worst_of_bound=worst)
+        print(f"[surface] 19e get_loss_mean_teacher(lambda_teacher={lam}) "
+              f"B={TRAIN_B}: loss {float(loss)!r} (CPU {float(loss_c)!r}), "
+              f"teacher_loss {float(stats['teacher_loss']):.6f}, gt_loss "
+              f"{float(stats['gt_loss']):.6f}; every stat within rtol 1e-5 "
+              f"+ 1e-6 of the CPU's (largest {worst:.3f} of the bound)")
+    del model, teacher, ep_s, ep_t
+    # the distance loss on phase 3's forward: its decoded quads, points
+    # within WALL_BAND of a ground-truth wall quad's plane labelled wall
+    pts = batch["point_clouds"][..., :3]
+    Bx, N, _ = pts.shape
+    Q = max(1, max(len(c) for c in pred_corners))
+    corners = np.zeros((Bx, Q, 4, 3), np.float32)
+    qmask = np.zeros((Bx, Q), bool)
+    for b, cs in enumerate(pred_corners):
+        if len(cs):
+            corners[b, :len(cs)] = np.stack(cs)
+            qmask[b, :len(cs)] = True
+    check(qmask.any(), "19e: the decode kept no quad")
+    g_c, g_n = batch["gt_quad_centers"], batch["gt_normal_vectors"]
+    walls = ((np.arange(g_c.shape[1])[None] < batch["num_gt_quads"][:, None])
+             & (np.abs(g_n[..., 2]) < 0.5))
+    plane = np.abs(np.einsum("bnqc,bqc->bnq", pts[:, :, None] - g_c[:, None],
+                             g_n))
+    labels = (np.where(walls[:, None], plane, np.inf) < WALL_BAND).any(-1)
+    labels = labels.astype(np.int64)
+    share = float(labels.mean())
+    args = [torch.from_numpy(a) for a in (pts, labels, corners, qmask)]
+    res = []
+    for d in (dev, torch.device("cpu")):
+        a = [t.to(d) for t in args]
+        loss, aux = distance_loss_gamma_mixture(*a)
+        lay = aux["layout_mask"]
+        d_abs = torch.where(lay, aux["distance"], 1.0).abs() + 1e-12
+        mean = (torch.where(lay, d_abs, 0.0).sum(-1, keepdim=True)
+                / lay.sum(-1, keepdim=True).clamp_min(1))
+        fit = gamma_mixture_em(torch.where(lay, d_abs, mean), 2.0, 40.0,
+                               10.0, 20.0, 0.5, 20)
+        res.append(dict(loss=float(loss),
+                        aux={k: v.cpu() for k, v in aux.items()},
+                        fit=torch.cat(fit, -1).cpu(),
+                        root=tdist._pdf_crossover(*fit)[:, 0].cpu()))
+    card_r, cpu_r = res
+    # indices equal but at ties within the distances' bound
+    dist_c, dist_p = card_r["aux"]["distance"], cpu_r["aux"]["distance"]
+    idx_c, idx_p = card_r["aux"]["idx_array"], cpu_r["aux"]["idx_array"]
+    tie = (idx_c != idx_p)
+    check(bool(((dist_c - dist_p).abs() <= 1e-6 + 1e-6 * dist_p.abs())[~tie]
+               .all()), "19e: distances beyond 1e-6 of the CPU's")
+    check(bool(((dist_c.abs() - dist_p.abs()).abs() <= 2e-6)[tie].all()),
+          "19e: a quad index differs where the distances do not tie")
+    fit_rel = float(((card_r["fit"] - cpu_r["fit"]).abs()
+                     / cpu_r["fit"].abs()).max())
+    check(fit_rel <= 1e-4, f"19e: mixture {fit_rel:.2e} relative from the "
+          f"CPU's")
+    # the roots: as far apart as the two mixtures' float64 roots, plus each
+    # side's float32 rounding
+    (x_c, r_c), (x_p, r_p) = (crossover64(r["fit"].numpy())
+                              for r in (card_r, cpu_r))
+    root_gap = (card_r["root"].double() - cpu_r["root"].double()).abs()
+    root_of_bound = float((root_gap.numpy() / (np.abs(x_c - x_p) + r_c
+                                               + r_p)).max())
+    check(root_of_bound <= 1.0, f"19e: the roots {root_of_bound:.2f} times "
+          f"their bound apart")
+    root_rel = float((root_gap / cpu_r["root"].double().abs()).max())
+    keep_c, keep_p = card_r["aux"]["keep_mask"], cpu_r["aux"]["keep_mask"]
+    band = (card_r["root"] - cpu_r["root"]).abs()[:, None] + 1e-6
+    outside = (dist_p.abs() - cpu_r["root"][:, None]).abs() > band
+    check(bool((keep_c == keep_p)[outside].all()), "19e: keep masks differ "
+          "away from the crossover")
+    n_diff = int((keep_c != keep_p).sum())
+    kept = keep_p.sum(-1)
+    fitted = kept > 0
+    check(bool(fitted.any()), "19e: no scene kept a point")
+    loss_rel = (abs(card_r["loss"] - cpu_r["loss"])
+                / max(abs(cpu_r["loss"]), 1e-30))
+    loss_bound = 1e-5 + 2 * n_diff / int(kept[fitted].min())
+    check(loss_rel <= loss_bound, f"19e: distance loss {card_r['loss']} vs "
+          f"CPU {cpu_r['loss']} ({loss_rel:.2e}, bound {loss_bound:.2e})")
+    print(f"[surface] 19e distance_loss_gamma_mixture B={Bx} N={N}: "
+          f"{int(qmask.sum())} decoded quads (up to {Q} a scene); wall "
+          f"labels on {share:.4f} of the points (within {WALL_BAND} m of a "
+          f"ground-truth wall quad's plane); loss {card_r['loss']!r} (CPU "
+          f"{cpu_r['loss']!r}, {loss_rel:.2e}); scenes fitted "
+          f"{int(fitted.sum())}, kept points {int(kept.sum())}; index ties "
+          f"{int(tie.sum())}; mixture {fit_rel:.2e} and root {root_rel:.2e} "
+          f"relative from the CPU's (the root {root_of_bound:.3f} of its "
+          f"bound); keep masks differ at {n_diff} points (between the roots "
+          f"only)")
+    out["distance"] = dict(loss=card_r["loss"], loss_cpu=cpu_r["loss"],
+                           quads=int(qmask.sum()), wall_share=share,
+                           index_ties=int(tie.sum()), fit_rel=fit_rel,
+                           root_rel=root_rel, root_of_bound=root_of_bound,
+                           keep_diff=n_diff)
+    return out
+
+
+def crossover64(fit):
+    """The gamma crossover of `losses.distance._pdf_crossover` for each row
+    (a1, b1, a2, b2, w) of `fit`, bisected in float64; and the rounding
+    bound of a float32 bisection there: 2^-20 of the sum of the log-pdf
+    difference's terms' magnitudes over its slope (the CPU tests' bound)."""
+    from scipy.special import gammaln
+    a1, b1, a2, b2, w = np.asarray(fit, np.float64).T
+
+    def mode(a, b):
+        return np.maximum(a - 1.0, 1e-3) / np.maximum(b, 1e-6)
+
+    def logpdf(x, a, b):
+        return a * np.log(b) - gammaln(a) + (a - 1) * np.log(x) - b * x
+    lo = np.minimum(mode(a1, b1), mode(a2, b2)) * 1e-3 + 1e-6
+    hi = np.maximum(mode(a1, b1), mode(a2, b2)) * 4.0 + 1e-3
+    for _ in range(100):
+        mid = 0.5 * (lo + hi)
+        right = (np.log(w) + logpdf(mid, a1, b1) - np.log1p(-w)
+                 - logpdf(mid, a2, b2)) > 0
+        lo, hi = np.where(right, mid, lo), np.where(right, hi, mid)
+    x = 0.5 * (lo + hi)
+    terms = (np.abs(np.log(w)) + np.abs(np.log1p(-w))
+             + sum(np.abs(a * np.log(b)) + np.abs(gammaln(a))
+                   + np.abs((a - 1) * np.log(x)) + np.abs(b * x)
+                   for a, b in ((a1, b1), (a2, b2))))
+    return x, 2.0 ** -20 * terms / np.abs((a1 - a2) / x - b1 + b2)
+
+
+def surface_phase(cfg, pc, batch, ep, pred_corners, card):
+    """Phase 19: the module surface off the PQTransformer's path. Returns
+    (report, the idx-only ball query's rows: 19a's two launches)."""
+    report = {}
+    report["msg"], bq_rows = msg_phase(pc, card)
+    report["lfp"] = lfp_phase(ep, card)
+    report["small_modules"] = small_modules_phase(ep, card)
+    report["remat"] = remat_phase(cfg, pc.device, card)
+    report["losses"] = surface_losses_phase(cfg, pc.device, card, batch, ep,
+                                            pred_corners)
+    return report, bq_rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2689,6 +3300,12 @@ def main() -> int:
     report["dp_world1"] = dp_world1_phase(cfg, dev, card, report)
     report["dp_ranks"] = dp_ranks_phase(cfg, dev, card)
     report["dp_cli"] = dp_cli_phase(card)
+
+    # -- 19. the module surface off the PQTransformer's path: SAModuleMSG
+    # (the idx-only ball query), LFPModuleMSG, GroupAll, PointsObjCls,
+    # general_sampling, self-type attention, remat_sa, the legacy losses
+    report["surface"], rows["ball_query_msg"] = surface_phase(
+        cfg, pc, batch, ep, f1["pred_corners"], card)
     report["kernel_rows"] = rows
     # a time below its bound means a miscounted bound or a broken timer
     for kname, krows in rows.items():
@@ -2763,6 +3380,21 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in mrows),
             "bound_by": max(mrows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": None, "matched": True})
+    # the idx-only entry: its main path is phase 19a's SAModuleMSG (two
+    # launches a call, B=16); times and bounds are those two launches'
+    mrows = rows["ball_query_msg"]
+    summary.append({
+        "name": "ball_query", "route": "cuda",
+        "source": "omni_pq_torch/csrc/ball_query.cu",
+        "replaces": "omni_pq_tpu/ops/ball_query.py:421",
+        "launches": report["surface"]["msg"]["launches"]["ball_query"],
+        "max_abs_err": max(r["max_abs_err"] for r in mrows),
+        "ms": sum(r["ms"] for r in mrows),
+        "device_ms": sum(r["device_ms"] for r in mrows),
+        "plain_ms": sum(r["plain_ms"] for r in mrows),
+        "bound_ms": sum(r["bound_ms"] for r in mrows),
+        "bound_by": max(mrows, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": None, "matched": True})
     # on no model path: its launches are the semi-supervised step's (0);
     # times and bounds are phase 11's four shapes
     frows11 = rows["ball_query_group_feats"]

@@ -8,8 +8,7 @@ package's mixed-precision switch: "bfloat16" runs the Dense chains, the
 attention projections and the fused SA-MLP kernel in bfloat16 while the
 parameters, BatchNorm statistics, softmax, LayerNorms and losses stay
 float32 (the library default stays "float32"; the CLIs default to
-bfloat16 as the JAX CLIs do). The JAX package's `remat_sa` knob is left
-out.
+bfloat16 as the JAX CLIs do).
 """
 from __future__ import annotations
 
@@ -40,6 +39,10 @@ SCANNET_MEAN_SIZES = np.array([
     [0.47535286, 0.49249493, 0.58021168],
 ], dtype=np.float32)
 
+SCANNET_TYPES = ['cabinet', 'bed', 'chair', 'sofa', 'table', 'door', 'window',
+                 'bookshelf', 'picture', 'counter', 'desk', 'curtain',
+                 'refrigerator', 'showercurtrain', 'toilet', 'sink', 'bathtub',
+                 'garbagebin']
 # the 18 detection classes' nyu40 ids (scannet/model_util_scannet.py:22)
 SCANNET_NYU40_IDS = np.array([3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28,
                               33, 34, 36, 39])
@@ -51,6 +54,21 @@ class DatasetConfig:
     num_class: int = 18
     num_heading_bin: int = 1
     num_size_cluster: int = 18
+    max_num_obj: int = 64
+    max_num_quad: int = 32
+
+    @property
+    def mean_size_arr(self) -> np.ndarray:
+        return SCANNET_MEAN_SIZES
+
+    def class2angle(self, pred_cls, residual):
+        """Heading angle of one prediction: ScanNet boxes are
+        axis-aligned, so always 0."""
+        return 0.0
+
+    def class2size(self, pred_cls: int, residual: np.ndarray) -> np.ndarray:
+        """Box size of one prediction: class mean size + residual."""
+        return SCANNET_MEAN_SIZES[pred_cls] + residual
 
     def class2angle_batch(self, pred_cls, residual) -> np.ndarray:
         """Heading angles of (...) predictions: ScanNet boxes are
@@ -61,6 +79,15 @@ class DatasetConfig:
         """Box sizes: class mean size + residual, (...) int, (..., 3) ->
         (..., 3)."""
         return SCANNET_MEAN_SIZES[np.asarray(pred_cls)] + residual
+
+    def param2obb(self, center, heading_class, heading_residual, size_class,
+                  size_residual):
+        """(cx, cy, cz, l, w, h, -heading) of one prediction."""
+        obb = np.zeros((7,))
+        obb[0:3] = center
+        obb[3:6] = self.class2size(int(size_class), size_residual)
+        obb[6] = -1 * self.class2angle(heading_class, heading_residual)
+        return obb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +116,12 @@ class ModelConfig:
     # the losses stay float32). Same meaning and default as the JAX
     # package's field.
     compute_dtype: str = "float32"
+    # recompute each SA layer's unfused SharedMLP + max-pool in the backward
+    # instead of keeping its (B, npoint, nsample, C) activations, the step's
+    # largest (torch.utils.checkpoint); the same values and gradients. No
+    # effect on the fused route, whose kernel keeps none. Same meaning and
+    # default as the JAX package's field.
+    remat_sa: bool = False
     # per-vector normal normalisation in QuadPredictHead; the reference
     # divides by the global tensor norm (pq_transformer.py:112-113). Same
     # default and meaning as the JAX package's flag.

@@ -4,7 +4,8 @@ The port's own copy of `omni_pq_tpu/evals/box_ops.py`.
 
 Host-side numpy, semantically matching the reference (SURVEY.md §5: metrics
 stay host-side, numerically matching):
-  - flip_axis_to_camera / get_3d_box_batch: models/ap_helper_pq.py:26-33,
+  - flip_axis_to_camera / get_3d_box / get_3d_box_batch:
+    models/ap_helper_pq.py:26-33,
     utils/box_util.py:218-234 (corners in "upright camera" frame, y up
     negated)
   - polygon_clip / convex_hull_intersection / box3d_iou:
@@ -30,6 +31,27 @@ def flip_axis_to_depth(pc: np.ndarray) -> np.ndarray:
     pc2[..., [0, 1, 2]] = pc2[..., [0, 2, 1]]
     pc2[..., 2] *= -1
     return pc2
+
+
+def roty(t: float) -> np.ndarray:
+    """Rotation about the y axis (the camera frame's up axis)."""
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+
+
+def get_3d_box(box_size, heading_angle, center) -> np.ndarray:
+    """(l,w,h), heading (clockwise from +x), center -> (8,3) corners.
+
+    Corner order: top face 0-3 (y=+h/2), bottom face 4-7, counter-clockwise
+    in BEV — the order box3d_iou depends on."""
+    R = roty(heading_angle)
+    l, w, h = box_size
+    x = np.array([l / 2, l / 2, -l / 2, -l / 2, l / 2, l / 2, -l / 2, -l / 2])
+    y = np.array([h / 2, h / 2, h / 2, h / 2, -h / 2, -h / 2, -h / 2, -h / 2])
+    z = np.array([w / 2, -w / 2, -w / 2, w / 2, w / 2, -w / 2, -w / 2, w / 2])
+    corners = R @ np.vstack([x, y, z])
+    corners += np.asarray(center).reshape(3, 1)
+    return corners.T
 
 
 def get_3d_box_batch(box_size, heading_angle, center) -> np.ndarray:

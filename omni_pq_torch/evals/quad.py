@@ -44,6 +44,20 @@ def heading_from_normal(normal: np.ndarray) -> np.ndarray:
     return np.where(n[..., 0] > 0, 2 * np.pi - ang, ang)
 
 
+def get_verts(center, width, height, normal) -> np.ndarray:
+    """Quad -> 4 corners [(x1,y1,h+),(x2,y2,h+),(x1,y1,h-),(x2,y2,h-)]
+    (ap_helper_pq.py:270-296)."""
+    normal = np.asarray(normal, dtype=np.float64)
+    normal = normal / max(np.linalg.norm(normal), 1e-6)
+    cx, cy, cz = center
+    x1 = cx + width * normal[1] / 2
+    x2 = cx - width * normal[1] / 2
+    y1 = cy - width * normal[0] / 2
+    y2 = cy + width * normal[0] / 2
+    h1, h2 = cz + height / 2, cz - height / 2
+    return np.array([[x1, y1, h1], [x2, y2, h1], [x1, y1, h2], [x2, y2, h2]])
+
+
 def get_verts_batch(center, width, height, normal) -> np.ndarray:
     """Quads -> corners: (..., 3), (...), (...), (..., 3) -> (..., 4, 3).
     Corners [(x1,y1,h+),(x2,y2,h+),(x1,y1,h-),(x2,y2,h-)] in float64, all

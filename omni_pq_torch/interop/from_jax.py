@@ -14,6 +14,13 @@ state_dict, which is laid out like the reference PQ_Transformer's:
 
 The decoder's position embeddings appear twice, under `decoder.{i}.*` and
 under the reference's `decoder_{self,cross}_posembeds.{i}` aliases.
+
+The modules off the PQTransformer's path have writers of their own, from the
+flax tree of one module to the port module's state_dict:
+`sa_module_msg_state_dict` (flax `mlp{i}` -> `mlps.{i}`),
+`group_all_state_dict` (`mlp` -> `mlp_module`), `lfp_module_msg_state_dict`
+(`mlp{i}` -> `mlps.{i}`, `post_mlp`), `points_obj_cls_state_dict`
+(`conv1-3`, `bn1-2`) and `mha_state_dict` (a MultiHeadAttention).
 """
 from __future__ import annotations
 
@@ -23,15 +30,19 @@ import numpy as np
 import torch
 
 
+def _join(dst: str, name: str) -> str:
+    return f"{dst}.{name}" if dst else name
+
+
 class _Writer:
     def __init__(self, variables: Dict):
         self.params = variables["params"]
-        self.stats = variables["batch_stats"]
+        self.stats = variables.get("batch_stats", {})
         self.sd: Dict[str, torch.Tensor] = {}
 
     @staticmethod
     def _node(tree, path):
-        for p in path.split("/"):
+        for p in filter(None, path.split("/")):
             tree = tree[p]
         return tree
 
@@ -41,9 +52,10 @@ class _Writer:
     def dense(self, src, dst, kernel_dims):
         node = self._node(self.params, src)
         k = np.asarray(node["kernel"])  # (in, out)
-        self._put(f"{dst}.weight", k.T.reshape(k.shape[::-1] + (1,) * kernel_dims))
+        self._put(_join(dst, "weight"),
+                  k.T.reshape(k.shape[::-1] + (1,) * kernel_dims))
         if "bias" in node:
-            self._put(f"{dst}.bias", node["bias"])
+            self._put(_join(dst, "bias"), node["bias"])
 
     def bn(self, src, dst):
         p, s = self._node(self.params, src), self._node(self.stats, src)
@@ -61,11 +73,11 @@ class _Writer:
     def mha(self, src, dst):
         node = self._node(self.params, src)
         names = ("q_proj", "k_proj", "v_proj")
-        self._put(f"{dst}.in_proj_weight", np.concatenate(
+        self._put(_join(dst, "in_proj_weight"), np.concatenate(
             [np.asarray(node[n]["kernel"]).T for n in names]))
-        self._put(f"{dst}.in_proj_bias", np.concatenate(
+        self._put(_join(dst, "in_proj_bias"), np.concatenate(
             [np.asarray(node[n]["bias"]) for n in names]))
-        self.dense(f"{src}/out_proj", f"{dst}.out_proj", 0)
+        self.dense(f"{src}/out_proj", _join(dst, "out_proj"), 0)
 
     def shared_mlp(self, src, dst):
         node = self._node(self.params, src)
@@ -134,4 +146,51 @@ def flax_to_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
                 w.sd[f"decoder_{kind}_posembeds.{i}.{k[len(prefix):]}"] = \
                     w.sd[k]
         i += 1
+    return w.sd
+
+
+def sa_module_msg_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
+    """flax variables of the JAX SAModuleMSG -> the port's SAModuleMSG
+    state_dict (flax `mlp{i}` -> `mlps.{i}`)."""
+    w = _Writer(variables)
+    i = 0
+    while f"mlp{i}" in w.params:
+        w.shared_mlp(f"mlp{i}", f"mlps.{i}")
+        i += 1
+    return w.sd
+
+
+def group_all_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
+    """flax variables of the JAX GroupAllModule -> the port's
+    GroupAllModule state_dict (flax `mlp` -> `mlp_module`)."""
+    w = _Writer(variables)
+    w.shared_mlp("mlp", "mlp_module")
+    return w.sd
+
+
+def lfp_module_msg_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
+    """flax variables of the JAX LFPModuleMSG -> the port's LFPModuleMSG
+    state_dict (flax `mlp{i}` -> `mlps.{i}`, the shared `post_mlp`)."""
+    sd = sa_module_msg_state_dict(variables)
+    w = _Writer(variables)
+    w.shared_mlp("post_mlp", "post_mlp")
+    return {**sd, **w.sd}
+
+
+def points_obj_cls_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
+    """flax variables of the JAX PointsObjClsModule -> the port's
+    PointsObjClsModule state_dict (the reference's conv1-3, bn1-2)."""
+    w = _Writer(variables)
+    for c in ("conv1", "conv2", "conv3"):
+        w.dense(c, c, 1)
+    for b in ("bn1", "bn2"):
+        w.bn(b, b)
+    return w.sd
+
+
+def mha_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
+    """flax variables of the JAX MultiHeadAttention -> the port's
+    MultiHeadAttention state_dict (packed in_proj, out_proj)."""
+    w = _Writer(variables)
+    w.mha("", "")
     return w.sd

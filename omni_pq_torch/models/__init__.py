@@ -1,13 +1,16 @@
-from .pointnet2 import SharedMLP, SAModuleVotes, FPModule
+from .pointnet2 import (SharedMLP, SAModuleVotes, SAModuleMSG,
+                        GroupAllModule, LFPModuleMSG, FPModule)
 from .backbone import Pointnet2Backbone
-from .transformer import (VotingModule, PositionEmbeddingLearned,
-                          MultiHeadAttention, TransformerDecoderLayer)
+from .transformer import (VotingModule, PointsObjClsModule, general_sampling,
+                          PositionEmbeddingLearned, MultiHeadAttention,
+                          TransformerDecoderLayer)
 from .heads import PredictHead, QuadPredictHead
 from .pq_transformer import PQTransformer, decoder_prefixes
 
 __all__ = [
-    "SharedMLP", "SAModuleVotes", "FPModule", "Pointnet2Backbone",
-    "VotingModule", "PositionEmbeddingLearned", "MultiHeadAttention",
-    "TransformerDecoderLayer", "PredictHead", "QuadPredictHead",
-    "PQTransformer", "decoder_prefixes",
+    "SharedMLP", "SAModuleVotes", "SAModuleMSG", "GroupAllModule",
+    "LFPModuleMSG", "FPModule", "Pointnet2Backbone", "VotingModule",
+    "PointsObjClsModule", "general_sampling", "PositionEmbeddingLearned",
+    "MultiHeadAttention", "TransformerDecoderLayer", "PredictHead",
+    "QuadPredictHead", "PQTransformer", "decoder_prefixes",
 ]

@@ -9,8 +9,10 @@ Channel plan with width=2, depth=2 (the reference default):
 Seeds: 1024 x 288-d at the sa2 coordinates. seed_inds keeps the reference's
 approximation sa1_inds[:, :1024] (backbone_module.py:135-137).
 `fused=True` routes the SA layers whose widths pass the gate through the
-fused SA-MLP kernel (`ModelConfig.fused_sa`); `dtype` is the SA and FP
-layers' compute dtype (`ModelConfig.compute_dtype`).
+fused SA-MLP kernel (`ModelConfig.fused_sa`); `remat=True` recomputes the
+unfused SA layers' MLP + max-pool in the backward (`ModelConfig.remat_sa`);
+`dtype` is the SA and FP layers' compute dtype
+(`ModelConfig.compute_dtype`).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ class Pointnet2Backbone(nn.Module):
                  depth: int = 2, out_dim: int = 288,
                  npoints=(2048, 1024, 512, 256), nsamples=(64, 32, 16, 16),
                  radii=(0.2, 0.4, 0.8, 1.2), fused: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         w, d = width, depth
         outs = [128 * w, 256 * w, 256 * w, 256 * w]
@@ -34,7 +36,7 @@ class Pointnet2Backbone(nn.Module):
         for i in range(4):
             self.add_module(f"sa{i + 1}", SAModuleVotes(
                 npoints[i], radii[i], nsamples[i], cin, mlps[i] + [outs[i]],
-                normalize_xyz=True, fused=fused, dtype=dtype))
+                normalize_xyz=True, fused=fused, dtype=dtype, remat=remat))
             cin = outs[i]
         self.fp1 = FPModule([outs[3] + outs[2], 256 * w, 256 * w], dtype)
         self.fp2 = FPModule([256 * w + outs[1], 256 * w, out_dim], dtype)

@@ -1,13 +1,16 @@
 """PointNet++ modules (channel-last; eval and train mode).
 
 The port of `omni_pq_tpu/models/pointnet2.py` (SharedMLP, SAModuleVotes,
-FPModule). Parameters carry the reference PQ_Transformer's state_dict names
-and shapes (pytorch_utils.SharedMLP: `layer{i}.conv.weight` of shape
-(out, in, 1, 1) and `layer{i}.bn.bn.*`), so a reference `.pth` loads as it
-is. Every 1x1 convolution runs as a matmul on channel-last tensors
-(`F.linear`), never through cuDNN, which would default to TF32.
-`SAModuleVotes(fused=True)` runs its MLP + max-pool through
-`ops.fused_mlp_pool` on the same parameters, where the widths pass the gate.
+SAModuleMSG, GroupAllModule, LFPModuleMSG, FPModule). Parameters carry the
+reference's state_dict names and shapes (pytorch_utils.SharedMLP:
+`layer{i}.conv.weight` of shape (out, in, 1, 1) and `layer{i}.bn.bn.*`;
+pointnet2_modules.py's `mlp_module`, `mlps.{i}` and `post_mlp`), so a
+reference `.pth` loads as it is. Every 1x1 convolution runs as a matmul on
+channel-last tensors (`F.linear`), never through cuDNN, which would default
+to TF32. `SAModuleVotes(fused=True)` runs its MLP + max-pool through
+`ops.fused_mlp_pool` on the same parameters, where the widths pass the gate;
+`SAModuleVotes(remat=True)` recomputes its unfused MLP + max-pool in the
+backward (`ModelConfig.remat_sa`).
 
 Mixed precision follows the JAX package (flax's `dtype` attributes): a
 module built with a compute dtype holds it as `compute_dtype`, and
@@ -27,6 +30,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import ops, parallel
 from ..ops import matmul as mm
@@ -100,10 +104,32 @@ class Conv(nn.Module):
         return linear(x, self.weight.flatten(1), self.bias, dt)
 
 
+# set while a rematerialised MLP + pool is recomputed in the backward
+_RECOMPUTING = False
+
+
+@contextlib.contextmanager
+def _recompute(dp):
+    """The backward's recompute of a rematerialised MLP + pool: it runs in
+    the forward's data-parallel context `dp` (the same global statistics,
+    the same collectives on every rank) and moves no running statistic, so
+    they move once a step, as under flax's remat."""
+    global _RECOMPUTING
+    saved, _RECOMPUTING = _RECOMPUTING, True
+    try:
+        with parallel.using(dp):
+            yield
+    finally:
+        _RECOMPUTING = saved
+
+
 def update_running_stats(bn: nn.BatchNorm1d, mean: torch.Tensor,
                          var: torch.Tensor) -> None:
     """flax's running-stat update: new = 0.9 * old + 0.1 * batch, with the
-    biased batch variance (not nn.BatchNorm1d's unbiased one)."""
+    biased batch variance (not nn.BatchNorm1d's unbiased one). A no-op in
+    the backward's recompute of a rematerialised forward."""
+    if _RECOMPUTING:
+        return
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
                               + (1 - BN_MOMENTUM) * mean)
@@ -179,6 +205,24 @@ class SharedMLP(nn.Sequential):
             self.add_module(f"layer{i}", _MLPLayer(cin, cout, dtype))
 
 
+def _grouped_width(in_channels: int, use_xyz: bool) -> int:
+    """The width of a grouped input: the relative xyz alone where there are
+    no features (`in_channels` 0), else the features, after the xyz where
+    `use_xyz`."""
+    return 3 if in_channels == 0 else in_channels + 3 * use_xyz
+
+
+def _grouped_input(grouped_xyz: torch.Tensor, features: Optional[torch.Tensor],
+                   idx: torch.Tensor, use_xyz: bool) -> torch.Tensor:
+    """The JAX modules' choice of MLP input: the grouped xyz where there
+    are no features, else the grouped features, after the xyz where
+    `use_xyz`."""
+    if features is None:
+        return grouped_xyz
+    grouped = ops.group_points(features, idx)
+    return torch.cat([grouped_xyz, grouped], dim=-1) if use_xyz else grouped
+
+
 class SAModuleVotes(nn.Module):
     """Set abstraction: FPS -> ball query + group -> SharedMLP -> max-pool
     (PointnetSAModuleVotes with pooling='max', use_xyz=True).
@@ -189,18 +233,27 @@ class SAModuleVotes(nn.Module):
     dtype (the JAX package's FusedMLPPool): the same parameters and
     buffers, and in train mode the same running-stat update from the
     kernel's batch statistics. `fused` reads the gate at the current
-    compute dtype (bfloat16 asks K % 16 == 0)."""
+    compute dtype (bfloat16 asks K % 16 == 0).
+
+    remat=True (the JAX package's nn.remat of `_mlp_pool`) recomputes the
+    unfused SharedMLP + max-pool in the backward from the grouped input
+    instead of keeping its (B, npoint, nsample, C) activations: the FPS and
+    the ball query are not run again, the recompute takes the forward's
+    data-parallel context and moves no running statistic (`_recompute`).
+    The fused route keeps no such activations, so the flag leaves it
+    alone."""
 
     def __init__(self, npoint: int, radius: float, nsample: int,
                  in_channels: int, mlp_channels: Sequence[int],
                  normalize_xyz: bool = False, fused: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.normalize_xyz = normalize_xyz
         self.mlp_channels = list(mlp_channels)
         self.mlp_module = SharedMLP([in_channels + 3, *mlp_channels], dtype)
         self.fuse = fused
+        self.remat = remat
         self.compute_dtype = dtype
 
     @property
@@ -221,24 +274,152 @@ class SAModuleVotes(nn.Module):
             update_running_stats(bn, mean, var)
         return pooled
 
+    def _mlp_pool(self, grouped: torch.Tensor) -> torch.Tensor:
+        return self.mlp_module(grouped).amax(dim=2)
+
     def forward(self, xyz: torch.Tensor,
-                features: Optional[torch.Tensor] = None):
+                features: Optional[torch.Tensor] = None,
+                inds: Optional[torch.Tensor] = None):
         """xyz (B,N,3), features (B,N,C) -> new_xyz (B,npoint,3),
-        new_features (B,npoint,C_out), inds (B,npoint) int32."""
-        inds = ops.fps(xyz, self.npoint)
+        new_features (B,npoint,C_out), inds (B,npoint) int32. `inds`, when
+        given, are the centres' indices into xyz in place of the FPS."""
+        if inds is None:
+            inds = ops.fps(xyz, self.npoint)
         new_xyz = ops.gather_points(xyz, inds)
         idx, grouped_xyz = ops.ball_query_group(self.radius, self.nsample,
                                                 xyz, new_xyz)
         if self.normalize_xyz:
             grouped_xyz = grouped_xyz / self.radius
-        if features is not None:
-            grouped = torch.cat([grouped_xyz,
-                                 ops.group_points(features, idx)], dim=-1)
-        else:
-            grouped = grouped_xyz
+        grouped = _grouped_input(grouped_xyz, features, idx, True)
         if self.fused:
             return new_xyz, self._fused_mlp_pool(grouped), inds
-        return new_xyz, self.mlp_module(grouped).amax(dim=2), inds
+        if self.remat and torch.is_grad_enabled():
+            dp = parallel.current()
+            pooled = checkpoint(
+                self._mlp_pool, grouped, use_reentrant=False,
+                preserve_rng_state=False,
+                context_fn=lambda: (contextlib.nullcontext(), _recompute(dp)))
+            return new_xyz, pooled, inds
+        return new_xyz, self._mlp_pool(grouped), inds
+
+
+class SAModuleMSG(nn.Module):
+    """Multi-scale-grouping set abstraction (PointnetSAModuleMSG /
+    PointnetSAModuleMSGVotes, pointnet2_modules.py:78-158, 274-353): one
+    FPS, then for each (radius, nsample, mlp) branch the idx-only
+    `ops.ball_query`, the grouped xyz relative to the centre (divided by
+    the radius with `normalize_xyz`) and the grouped features, a float32
+    SharedMLP (`mlps.{i}`) and a max-pool over nsample; the branches'
+    pooled features concatenated. `mlps` lists each branch's output widths,
+    `in_channels` the features' width (0: no features)."""
+
+    def __init__(self, npoint: int, radii: Sequence[float],
+                 nsamples: Sequence[int], in_channels: int,
+                 mlps: Sequence[Sequence[int]], normalize_xyz: bool = False,
+                 use_xyz: bool = True):
+        super().__init__()
+        if not len(radii) == len(nsamples) == len(mlps):
+            raise ValueError(f"SAModuleMSG: {len(radii)} radii, "
+                             f"{len(nsamples)} nsamples, {len(mlps)} mlps")
+        self.npoint = npoint
+        self.radii, self.nsamples = list(radii), list(nsamples)
+        self.normalize_xyz, self.use_xyz = normalize_xyz, use_xyz
+        cin = _grouped_width(in_channels, use_xyz)
+        self.mlps = nn.ModuleList(SharedMLP([cin, *mlp]) for mlp in mlps)
+
+    def forward(self, xyz: torch.Tensor,
+                features: Optional[torch.Tensor] = None,
+                inds: Optional[torch.Tensor] = None):
+        """xyz (B,N,3), features (B,N,C) or None, inds (B,npoint) or None
+        (FPS) -> new_xyz (B,npoint,3), new_features (B,npoint,
+        sum of the branches' last widths), inds (B,npoint) int32."""
+        if inds is None:
+            inds = ops.fps(xyz, self.npoint)
+        new_xyz = ops.gather_points(xyz, inds)
+        outs = []
+        for radius, nsample, mlp in zip(self.radii, self.nsamples, self.mlps):
+            idx = ops.ball_query(radius, nsample, xyz, new_xyz)
+            grouped_xyz = ops.group_points(xyz, idx) - new_xyz[:, :, None, :]
+            if self.normalize_xyz:
+                grouped_xyz = grouped_xyz / radius
+            grouped = _grouped_input(grouped_xyz, features, idx, self.use_xyz)
+            outs.append(mlp(grouped).amax(dim=2))
+        return new_xyz, torch.cat(outs, dim=-1), inds
+
+
+class GroupAllModule(nn.Module):
+    """GroupAll (pointnet2_utils.py:379-425) + SharedMLP + max-pool: the
+    whole cloud as one group -> one global feature. The MLP's input is the
+    xyz where there are no features (`in_channels` 0), else the features,
+    after the xyz where `use_xyz` (the JAX module's choice); it is the
+    reference's `mlp_module` (PointnetSAModuleVotes with npoint None)."""
+
+    def __init__(self, in_channels: int, mlp_channels: Sequence[int],
+                 use_xyz: bool = True):
+        super().__init__()
+        self.use_xyz = use_xyz
+        self.mlp_module = SharedMLP([_grouped_width(in_channels, use_xyz),
+                                     *mlp_channels])
+
+    def forward(self, xyz: torch.Tensor,
+                features: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """xyz (B,N,3), features (B,N,C) or None -> (B, 1, C_out)."""
+        grouped = xyz[:, None]
+        if features is not None:
+            f = features[:, None]
+            grouped = torch.cat([grouped, f], dim=-1) if self.use_xyz else f
+        return self.mlp_module(grouped).amax(dim=2)
+
+
+class LFPModuleMSG(nn.Module):
+    """Learnable multi-scale feature propagation (PointnetLFPModuleMSG,
+    pointnet2_modules.py:418-497): features1 at xyz1 propagated onto the
+    xyz2 centres. For each (radius, nsample, mlp) scale,
+    `ops.ball_query_group` around the xyz2 centres (which need not lie in
+    xyz1: a centre with no point in its ball groups xyz1[0] - centre and
+    features1[0], as the reference pads), a float32 SharedMLP (`mlps.{i}`)
+    and a max-pool, the xyz2-side skip features2 concatenated after it, then
+    one post MLP (`post_mlp`) whose weights all scales share; the scales'
+    outputs concatenated on channels. `mlps` and `post_mlp` list output
+    widths; `in_channels1` / `in_channels2` are the widths of features1 /
+    features2 (0: none)."""
+
+    def __init__(self, radii: Sequence[float], nsamples: Sequence[int],
+                 in_channels1: int, in_channels2: int,
+                 mlps: Sequence[Sequence[int]], post_mlp: Sequence[int],
+                 use_xyz: bool = True):
+        super().__init__()
+        if not len(radii) == len(nsamples) == len(mlps):
+            raise ValueError(f"LFPModuleMSG: {len(radii)} radii, "
+                             f"{len(nsamples)} nsamples, {len(mlps)} mlps")
+        widths = {mlp[-1] + in_channels2 for mlp in mlps}
+        if len(widths) != 1:
+            raise ValueError(f"LFPModuleMSG: the scales share post_mlp, but "
+                             f"their outputs + the skip are {sorted(widths)} "
+                             f"wide")
+        self.radii, self.nsamples = list(radii), list(nsamples)
+        self.use_xyz = use_xyz
+        cin = _grouped_width(in_channels1, use_xyz)
+        self.mlps = nn.ModuleList(SharedMLP([cin, *mlp]) for mlp in mlps)
+        self.post_mlp = SharedMLP([widths.pop(), *post_mlp])
+
+    def forward(self, xyz2: torch.Tensor, xyz1: torch.Tensor,
+                features2: Optional[torch.Tensor],
+                features1: Optional[torch.Tensor]) -> torch.Tensor:
+        """xyz2 (B,N2,3) targets, xyz1 (B,N1,3) sources, features2
+        (B,N2,C2) skip or None, features1 (B,N1,C1) or None ->
+        (B, N2, len(mlps) * post_mlp[-1])."""
+        outs = []
+        for radius, nsample, mlp in zip(self.radii, self.nsamples, self.mlps):
+            idx, grouped_xyz = ops.ball_query_group(radius, nsample, xyz1,
+                                                    xyz2)
+            grouped = _grouped_input(grouped_xyz, features1, idx,
+                                     self.use_xyz)
+            new = mlp(grouped).amax(dim=2)
+            if features2 is not None:
+                new = torch.cat([new, features2], dim=-1)
+            outs.append(self.post_mlp(new))
+        return torch.cat(outs, dim=-1)
 
 
 class FPModule(nn.Module):

@@ -11,7 +11,8 @@ layer's query positions carry no gradient (pq_transformer.py:263-264 of the
 reference). `model.train()` switches BatchNorm to batch statistics and the
 decoder's dropout on; the masks come from the generator passed to forward.
 `cfg.compute_dtype` sets every module's compute dtype as the JAX package
-threads it; the decoder's query and key projections have none and compute
+threads it, and `cfg.remat_sa` the SA layers' remat (backbone and vote
+aggregation); the decoder's query and key projections have none and compute
 in float32, so each `end_points` key has the dtype JAX gives it (the SA,
 FP and seed features and the cluster features in bfloat16 under bfloat16,
 everything else float32, indices int32).
@@ -47,11 +48,13 @@ class PQTransformer(nn.Module):
             input_feature_dim=cfg.input_feature_dim, width=cfg.backbone_width,
             depth=cfg.backbone_depth, out_dim=hd,
             npoints=cfg.backbone_npoints, nsamples=cfg.backbone_nsamples,
-            radii=cfg.backbone_radii, fused=cfg.fused_sa, dtype=dt)
+            radii=cfg.backbone_radii, fused=cfg.fused_sa, dtype=dt,
+            remat=cfg.remat_sa)
         self.vote = VotingModule(hd, dt)
         self.vote_aggregation = SAModuleVotes(
             cfg.num_proposal, 0.3, cfg.vote_aggregation_nsample, hd,
-            [hd, hd, hd], normalize_xyz=True, fused=cfg.fused_sa, dtype=dt)
+            [hd, hd, hd], normalize_xyz=True, fused=cfg.fused_sa, dtype=dt,
+            remat=cfg.remat_sa)
         obj_head = dict(hidden_dim=hd, num_heading_bin=cfg.num_heading_bin,
                         num_size_cluster=cfg.num_size_cluster,
                         num_class=cfg.num_class, dtype=dt)

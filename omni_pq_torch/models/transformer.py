@@ -1,5 +1,6 @@
-"""Voting module, learned position embedding, multi-head attention and the
-DETR-style decoder layer (the port of `omni_pq_tpu/models/transformer.py`).
+"""Voting module, points objectness module, general sampling, learned
+position embedding, multi-head attention and the DETR-style decoder layer
+(the port of `omni_pq_tpu/models/transformer.py`).
 
 Channel-last throughout. Attention is written out as matmul -> softmax ->
 matmul with separate q/k/v projections, logits divided by sqrt(head dim)
@@ -24,7 +25,7 @@ import math
 import torch
 from torch import nn
 
-from .. import parallel
+from .. import ops, parallel
 from ..ops import matmul as mm
 from .pointnet2 import BatchNorm, Conv, linear
 
@@ -81,6 +82,38 @@ class VotingModule(nn.Module):
         return seed_xyz + net[..., 0:3], seed_features + net[..., 3:]
 
 
+class PointsObjClsModule(nn.Module):
+    """Per-seed objectness logits (pointnet_util.py:330-356, the reference's
+    kps sampling variant): conv1 -> BN -> ReLU -> conv2 -> BN -> ReLU ->
+    conv3, the first two at the compute dtype with float32 BatchNorm,
+    conv3 in float32, as the JAX module."""
+
+    def __init__(self, seed_feature_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        d = seed_feature_dim
+        self.conv1 = Conv(d, d, dtype=dtype)
+        self.bn1 = BatchNorm(d)
+        self.conv2 = Conv(d, d, dtype=dtype)
+        self.bn2 = BatchNorm(d)
+        self.conv3 = Conv(d, 1)
+
+    def forward(self, seed_features: torch.Tensor) -> torch.Tensor:
+        """(B, S, C) -> (B, S, 1) float32 logits."""
+        net = torch.relu(self.bn1(self.conv1(seed_features)))
+        net = torch.relu(self.bn2(self.conv2(net)))
+        return self.conv3(net)
+
+
+def general_sampling(xyz: torch.Tensor, features: torch.Tensor,
+                     sample_inds: torch.Tensor):
+    """GeneralSamplingModule (pointnet_util.py:361-375): xyz (B,N,3) and
+    features (B,N,C) at sample_inds (B,S) -> (xyz (B,S,3), features
+    (B,S,C), sample_inds)."""
+    return (ops.gather_points(xyz, sample_inds),
+            ops.gather_points(features, sample_inds), sample_inds)
+
+
 class PositionEmbeddingLearned(nn.Module):
     """Learned absolute position embedding over xyz (pq_transformer.py:17-33):
     Conv1d -> BN -> ReLU -> Conv1d, as `position_embedding_head.{0,1,3}`."""
@@ -96,13 +129,20 @@ class PositionEmbeddingLearned(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Standard multi-head attention with packed q/k/v parameters."""
+    """Standard multi-head attention with packed q/k/v parameters.
+
+    attention_type="self" is the reference fork's one deviation
+    (multi_head_attention.py:393-396), as the JAX module has it: the output
+    projection takes query - attention output (in float32) instead of the
+    attention output. No reference script reaches it."""
 
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 attention_type: str = ""):
         super().__init__()
         self.nhead = nhead
         self.dropout = dropout
+        self.attention_type = attention_type
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d_model))
         self.out_proj = Conv(d_model, d_model, kernel_dims=0)
@@ -127,7 +167,10 @@ class MultiHeadAttention(nn.Module):
         weights = dropout(torch.softmax(logits, dim=-1), self.dropout,
                           self.training, generator)
         out = mm.matmul(weights.to(dt), vp.transpose(1, 2)).transpose(1, 2)
-        return self.out_proj(out.float().reshape(B, Lq, D))
+        out = out.float().reshape(B, Lq, D)
+        if self.attention_type == "self":
+            out = q.float() - out
+        return self.out_proj(out)
 
 
 class TransformerDecoderLayer(nn.Module):

@@ -3,9 +3,9 @@ with its grouping and feature-grouping forms, the fused SA-MLP) with their
 plain PyTorch versions, the plain gather/interpolation ops and the Chamfer
 distance of the losses.
 
-The models call `ops.fps`, `ops.ball_query_group` and `ops.fused_mlp_pool`
-through this package, so `plain_versions()` can route a whole forward (and
-its backward) through the plain versions.
+The models call `ops.fps`, `ops.ball_query`, `ops.ball_query_group` and
+`ops.fused_mlp_pool` through this package, so `plain_versions()` can route
+a whole forward (and its backward) through the plain versions.
 """
 import contextlib
 
@@ -31,14 +31,15 @@ __all__ = [
 
 @contextlib.contextmanager
 def plain_versions():
-    """Within the block, the models' fps / ball_query_group / fused_mlp_pool
-    calls take the plain PyTorch versions on every device: the reference a
-    kernel-path forward on the card is held against."""
-    global fps, ball_query_group, fused_mlp_pool
-    saved = fps, ball_query_group, fused_mlp_pool
-    fps, ball_query_group, fused_mlp_pool = (
-        fps_plain, ball_query_group_plain, fused_mlp_pool_plain)
+    """Within the block, the models' fps / ball_query / ball_query_group /
+    fused_mlp_pool calls take the plain PyTorch versions on every device:
+    the reference a kernel-path forward on the card is held against."""
+    global fps, ball_query, ball_query_group, fused_mlp_pool
+    saved = fps, ball_query, ball_query_group, fused_mlp_pool
+    fps, ball_query, ball_query_group, fused_mlp_pool = (
+        fps_plain, ball_query_ref, ball_query_group_plain,
+        fused_mlp_pool_plain)
     try:
         yield
     finally:
-        fps, ball_query_group, fused_mlp_pool = saved
+        fps, ball_query, ball_query_group, fused_mlp_pool = saved

@@ -1,7 +1,9 @@
-"""Qualitative dump helpers: PLY point clouds and box/quad meshes.
+"""Qualitative dump helpers: text point clouds, PLY point clouds and
+box/quad meshes.
 
-The port's own copy of the PLY writers and result dumps of
-`omni_pq_tpu/utils/viz.py` (numpy only): models/dump_helper.py:25-183,
+The port's own copy of `omni_pq_tpu/utils/viz.py` (numpy only): the colour
+palettes of models/utils/distance_util.py, the dumps of
+models/dump_helper.py:25-183,
 models/dump_helper_quad.py:23-245 (quad OBB dumps,
 DUMP_CONF_THRESH=0.995) and the relevant utils/pc_util.py writers
 (:359-533) without the trimesh dependency — plain ASCII PLY is written
@@ -18,6 +20,50 @@ from ..evals.box_ops import flip_axis_to_depth, get_3d_box_batch
 from ..evals.quad import heading_from_normal, softmax
 
 DUMP_CONF_THRESH = 0.995
+
+# distance-heat palette (models/utils/distance_util.py Palette:24-40 spirit)
+PALETTE = np.array([
+    [247, 251, 255], [222, 235, 247], [198, 219, 239], [158, 202, 225],
+    [107, 174, 214], [66, 146, 198], [33, 113, 181], [8, 81, 156],
+    [8, 48, 107],
+], dtype=np.float64)
+
+
+def heat_colors(values: np.ndarray) -> np.ndarray:
+    """Scalars -> (N, 3) palette colours, min to max (per-point distance
+    dumps)."""
+    v = np.asarray(values, dtype=np.float64)
+    v = (v - v.min()) / max(v.max() - v.min(), 1e-9)
+    idx = v * (len(PALETTE) - 1)
+    lo = np.floor(idx).astype(int)
+    hi = np.minimum(lo + 1, len(PALETTE) - 1)
+    frac = (idx - lo)[:, None]
+    return PALETTE[lo] * (1 - frac) + PALETTE[hi] * frac
+
+
+# the reference Palette's 6 base colours (distance_util.py:27-34), cycled by
+# label id (its distance-blend second colour is heat_colors' role)
+LABEL_PALETTE = np.array([
+    [58, 232, 27], [240, 247, 0], [13, 42, 250],
+    [250, 7, 250], [173, 0, 254], [255, 0, 0],
+], dtype=np.uint8)
+
+
+def label_palette(labels: np.ndarray) -> np.ndarray:
+    """(N,) int label ids -> (N, 3) uint8 colours (Palette idx % 6)."""
+    return LABEL_PALETTE[np.asarray(labels, dtype=np.int64) % 6]
+
+
+def dump_pc(points: np.ndarray, path: str, colors: np.ndarray = None):
+    """(N,3) points [+ (N,3) 0-255 colours] -> a whitespace text dump
+    (dump_helper.dump_pc style)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if colors is None:
+        np.savetxt(path, points, fmt="%.6f")
+    else:
+        np.savetxt(path, np.concatenate([points, colors], axis=1),
+                   fmt="%.6f %.6f %.6f %d %d %d")
+
 
 
 def write_ply_points(points: np.ndarray, path: str,

@@ -21,8 +21,13 @@ equals its plain version bitwise in float32 and bfloat16, and its backward
 the CPU's to 1e-6 of the gradient's norm. Under a world-1 process group
 the fused train mode's statistics, added over the ranks between two
 launches, are bitwise those without a group. One full-width semi-supervised step runs on the card
-with finite stats and the launch counts of its two forwards.
+with finite stats and the launch counts of its two forwards. SAModuleMSG
+(fps and the idx-only ball query) and LFPModuleMSG (ball_query_group around
+centres outside the cloud) on the kernels equal their plain path bitwise;
+the remat_sa step equals the step without it: the same launches, the BN
+running stats bitwise, stats and gradients within 1e-5.
 """
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -742,3 +747,137 @@ def test_full_width_semi_supervised_step_on_card(dev):
     for k, v in stats.items():
         assert bool(torch.isfinite(v)), k
     assert "weighted_consistency_loss" in stats and "gamma_engaged_frac" in stats
+
+
+def _module_on(module, dev, seed):
+    """`module` with random weights from `seed` (infer.init_weights) and BN
+    affine parameters and running stats from numpy noise, on `dev`."""
+    from omni_pq_torch.infer import init_weights
+    from omni_pq_torch.models.pointnet2 import BatchNorm
+    init_weights(module, torch.Generator().manual_seed(seed))
+    r = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                c = m.num_features
+                for t, v in ((m.weight, r.uniform(0.5, 1.5, c)),
+                             (m.bias, r.normal(0, 0.1, c)),
+                             (m.running_mean, r.normal(0, 0.1, c)),
+                             (m.running_var, r.uniform(0.5, 1.5, c))):
+                    t.copy_(torch.from_numpy(v))
+    return module.to(dev)
+
+
+def _kernel_and_plain(module, args, train, counted, dev):
+    """module(*args) on the kernels, then through ops.plain_versions(),
+    from the same state: (launch counts of the kernel run; for each run
+    the outputs, the parameters' gradients of a fixed functional in train
+    mode and the buffers afterwards)."""
+    import copy
+    out = []
+    for plain in (False, True):
+        m = copy.deepcopy(module).train(train)
+        for fn in counted.values():
+            fn.launches = 0
+        ctx = ops.plain_versions() if plain else contextlib.nullcontext()
+        with ctx, torch.set_grad_enabled(train):
+            res = m(*args)
+            res = res if isinstance(res, tuple) else (res,)
+            if train:
+                gen = torch.Generator(dev).manual_seed(1)
+                sum((r * torch.randn(r.shape, generator=gen, device=dev))
+                    .sum() for r in res if r.is_floating_point()).backward()
+        torch.cuda.synchronize()
+        if not plain:
+            launches = {k: fn.launches for k, fn in counted.items()}
+        out.append(([r.detach() for r in res],
+                    {n: p.grad for n, p in m.named_parameters()},
+                    dict(m.named_buffers())))
+    return launches, out
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_sa_module_msg_on_kernels_equals_plain(dev, train):
+    """SAModuleMSG at small widths on a 40 000-point scene pair: 1 FPS and
+    2 idx-only ball-query launches, outputs (and in train mode the
+    parameters' gradients and running stats) bitwise its plain path."""
+    from omni_pq_torch.models import SAModuleMSG
+    xyz = _cuda(_scenes(2)[..., :3], dev)
+    feats = _cuda(np.random.default_rng(1).normal(size=(2, 40000, 4)), dev)
+    msg = _module_on(SAModuleMSG(512, (0.2, 0.4), (32, 16), 4,
+                                 ((16, 32), (16, 24)), normalize_xyz=True),
+                     dev, seed=2)
+    counted = {"fps": ops.fps, "ball_query": ops.ball_query,
+               "ball_query_group": ops.ball_query_group}
+    launches, (kern, plain) = _kernel_and_plain(msg, (xyz, feats), train,
+                                                counted, dev)
+    assert launches == {"fps": 1, "ball_query": 2, "ball_query_group": 0}
+    for a, b in zip(kern, plain):
+        assert (a.keys() if isinstance(a, dict) else len(a)) == (
+            b.keys() if isinstance(b, dict) else len(b))
+        for x, y in (zip(a.values(), b.values()) if isinstance(a, dict)
+                     else zip(a, b)):
+            assert (x is None and y is None) or torch.equal(x, y)
+
+
+def test_lfp_module_msg_on_kernels_equals_plain(dev):
+    """LFPModuleMSG at small widths, centres not drawn from the sources and
+    one far outside (no hit: row 0 stands in): 2 ball-query-group launches,
+    the output bitwise its plain path's."""
+    from omni_pq_torch.models import LFPModuleMSG
+    r = np.random.default_rng(3)
+    src = _scenes(2)[:, ::40, :3]                    # (2, 1000, 3)
+    tgt = src[:, ::2] + r.normal(0, 0.05, (2, 500, 3))
+    tgt[1, 17] += 100.0
+    f1, f2 = r.normal(size=(2, 1000, 8)), r.normal(size=(2, 500, 6))
+    lfp = _module_on(LFPModuleMSG((0.4, 0.8), (16, 8), 8, 6,
+                                  ((16, 16), (24, 16)), (24,)), dev, seed=4)
+    counted = {"ball_query_group": ops.ball_query_group}
+    args = tuple(_cuda(a, dev) for a in (tgt, src, f2, f1))
+    launches, (kern, plain) = _kernel_and_plain(lfp, args, False, counted,
+                                                dev)
+    assert launches == {"ball_query_group": 2}
+    idx = ops.ball_query(0.8, 8, args[1], args[0])
+    assert int(idx[1, 17].max()) == 0
+    assert torch.equal(kern[0][0], plain[0][0])
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_remat_sa_step_on_card_matches_the_step_without_it(dev, fused):
+    """The --smoke supervised step (fused: backbone width 2, every SA layer
+    through the fused kernel) with remat_sa against the same step without
+    it: the same launch counts, the BN running stats bitwise (moved once),
+    stats and gradients within 1e-5 (index_add_ adds in no fixed order on
+    the card)."""
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.train import (OptimizerConfig, batch_to_tensors,
+                                     TrainState, make_train_step)
+    cfg = ModelConfig(num_points=2048, dropout=0.0,
+                      **(dict(FUSED_SMOKE, fused_sa=True) if fused
+                         else SMOKE_MODEL))
+    labeled = batch_to_tensors(make_batch(np.random.default_rng(7), 2,
+                                          cfg.num_points), dev)
+    counted = (ops.fps, ops.ball_query_group, ops.fused_mlp_pool)
+    runs = []
+    for remat in (False, True):
+        model = build_model(dataclasses.replace(cfg, remat_sa=remat), dev,
+                            seed=2)
+        state = TrainState(model, OptimizerConfig())
+        step = make_train_step(model, model.cfg, SCANNET_MEAN_SIZES)
+        for fn in counted:
+            fn.launches = 0
+        stats = step(state, labeled)
+        torch.cuda.synchronize()
+        runs.append((stats, {n: p.grad for n, p in model.named_parameters()},
+                     dict(model.named_buffers()),
+                     [fn.launches for fn in counted]))
+    (s0, g0, b0, l0), (s1, g1, b1, l1) = runs
+    assert l1 == l0 and l0[2] == (4 if fused else 0)
+    for k in b0:
+        assert torch.equal(b1[k], b0[k]), k
+    for k in s0:
+        assert abs(float(s1[k]) - float(s0[k])) <= 1e-5 * max(
+            1.0, abs(float(s0[k]))), k
+    norm = float(torch.sqrt(sum((g * g).sum() for g in g0.values())))
+    gap = max(float((g1[n] - g0[n]).abs().max()) for n in g0)
+    assert gap <= 1e-5 * norm
