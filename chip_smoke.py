@@ -177,11 +177,33 @@ when every phase passed:
      bounds (the distance loss's crossover root: as far from the CPU's as
      the float64 roots of the two fitted mixtures, plus each side's float32
      rounding, crossover64).
+ 20. the float64 route, ModelConfig(compute_dtype="float64") at full
+     width, phase 3's weights (float64 parameters holding them) and clouds
+     (taken as float64), TF32 off: (a) the eval forward at B=16: 6 FPS and
+     5 idx-only ball-query launches (the kernels decide on float32 copies
+     of the coordinates, the grouping gathers in float64), 0
+     ball-query-group and 0 fused launches; every key finite, floating keys
+     float64; every FPS call's picks but vote aggregation's bitwise phase
+     3's (their inputs' float32 copies are phase 3's inputs); the end points
+     bitwise the same forward's under ops.plain_versions(); (b) each key's
+     largest gap to phase 3's float32 forward, over its largest magnitude
+     (printed); (c) the card against the port on this machine's CPU at
+     B=2: indices bitwise, floats within F64_CPU_REL of each key's largest
+     magnitude; (d) the backward of tests/test_torch_parity.py's weighted
+     scalar of end points (B=2, eval mode) on the kernel path against the
+     plain path: each leaf within F64_GRAD_REL; (e) one float64 supervised
+     step at B=3 (phase 8's batch, dropout from the same generator seed) on
+     both paths: finite stats, total_loss within F64_STEP_LOSS_REL, 6 / 5
+     launches; ms/step of 3 more steps and the peak memory; (f) ms/batch of
+     (a) in turns with phase 3's float32 forward, peak memory, a profile of
+     one forward (top ops) and the FPS and ball-query kernels' device time
+     a forward beside phase 6's float32 figures.
 The second-last line is the kernels JSON, the last the device JSON. Details
 go to chiprun_out/chip_smoke.json, chiprun_out/chip_smoke_profile.txt,
 chiprun_out/chip_smoke_train_profile.txt,
 chiprun_out/chip_smoke_semi_profile.txt and
 chiprun_out/chip_smoke_bf16_semi_profile.txt.
+Phase 20's profile goes to chip_smoke_float64_profile.txt beside them.
 """
 from __future__ import annotations
 
@@ -328,6 +350,29 @@ SURFACE_GRAD_REL = 1e-6
 # 19c: the card against the same module on the CPU, the largest gap over
 # the largest magnitude (float32 products summed in other orders)
 SURFACE_CPU_REL = 1e-5
+# phase 20: the float64 route (ModelConfig(compute_dtype="float64")). (c)
+# the card against the port on this machine's CPU, each float key's largest
+# gap over its largest magnitude: the bound the CPU tests hold the port to
+# against JAX's float64 route
+F64_CPU_REL = 1e-9
+F64_CPU_B = 2
+# (d) the backward of the weighted scalar on the kernel path against the
+# plain path, each leaf's largest gap over its largest magnitude (at least
+# F64_GRAD_FLOOR of the gradient norm: a leaf whose gradient is roundoff):
+# the forwards are bitwise equal, and the gathers' backward (index_put_
+# with accumulation) adds in no fixed order on the card, float64 roundoff
+# (~1e-16 of a sum) through the rest of the backward
+F64_GRAD_REL = 1e-9
+F64_GRAD_FLOOR = 1e-12
+# the scalar's terms: tests/test_torch_parity.py's float64 test
+F64_PREFIXES = ("proposal_", "0head_", "3head_", "last_")
+F64_FIELDS = ("center", "objectness_scores", "sem_cls_scores",
+              "heading_scores", "size_scores", "quad_scores", "quad_center",
+              "normal_vector", "quad_size")
+# (e) the supervised step's total_loss on the kernel path against the plain
+# path from the same state and generator: the forward is bitwise the plain
+# one, so only the losses' own reductions are left
+F64_STEP_LOSS_REL = 1e-12
 # 19e: points this close to a ground-truth wall quad's plane are wall
 WALL_BAND = 0.02
 
@@ -2971,6 +3016,280 @@ def surface_phase(cfg, pc, batch, ep, pred_corners, card):
     return report, bq_rows
 
 
+def float64_phase(cfg, dev, pc, batch, model, ep, rows, report, card):
+    """Phase 20: the float64 route beside phase 3's float32 forward."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from omni_pq_torch import ops
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.data import make_batch
+    from omni_pq_torch.infer import build_model, eval_forward
+    from omni_pq_torch.train import (OptimizerConfig, TrainState,
+                                     batch_to_tensors, make_train_step)
+    f64 = torch.float64
+    cfg64 = dataclasses.replace(cfg, compute_dtype="float64")
+    out = {}
+    counted = surface_counted()
+    want = {"fps": 6, "ball_query": 5, "ball_query_group": 0,
+            "fused_mlp_pool": 0}
+
+    # (a) the eval forward at B=16
+    model64 = build_model(cfg64, dev, seed=SEED)
+    check(all(p.dtype == f64 for p in model64.parameters()),
+          "float64 route: parameters not float64")
+    eval_forward(model64, pc)  # warm-up
+    picks32, picks64 = [], []
+    restore = record_fps_picks(ops, picks32)
+    try:
+        eval_forward(model, pc)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts(counted)
+    restore = record_fps_picks(ops, picks64)
+    try:
+        ep64 = eval_forward(model64, pc)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = fused_launch_counts(counted)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(f"[float64] launches in one forward: {launches}")
+    check(launches == want, f"float64 forward launches {launches}, "
+          f"expected {want}")
+    check(set(ep64) == set(ep), "float64 forward: other end_points keys")
+    for k, v in ep64.items():
+        if v.dtype.is_floating_point:
+            check(v.dtype == f64, f"float64 forward: {k} is {v.dtype}")
+            check(bool(torch.isfinite(v).all()),
+                  f"float64 forward: {k} has non-finite values")
+        else:
+            check(v.dtype == torch.int32, f"float64 forward: {k} {v.dtype}")
+    check(len(picks32) == len(picks64) == 6, "float64: FPS calls recorded "
+          f"{len(picks32)} / {len(picks64)}, expected 6")
+    calls = ["sa1", "sa2", "sa3", "sa4", "quad_queries", "vote_aggregation"]
+    moved = {c: int((a != b).sum()) for c, a, b in
+             zip(calls, picks32, picks64)}
+    print(f"[float64] FPS picks that differ from phase 3's float32 forward, "
+          f"by call: {moved} (all but vote aggregation's must be 0: their "
+          f"inputs' float32 copies are phase 3's inputs)")
+    check(all(v == 0 for c, v in moved.items() if c != "vote_aggregation"),
+          f"float64 FPS picks differ from phase 3's: {moved}")
+    with ops.plain_versions():
+        ep64_plain = eval_forward(model64, pc)
+    torch.cuda.synchronize()
+    check(fused_launch_counts(counted) == want,
+          "the float64 plain-path forward launched a kernel")
+    diffs = {k: float((ep64[k].double() - ep64_plain[k].double()).abs().max())
+             for k in ep64}
+    worst = max(diffs.items(), key=lambda kv: kv[1])
+    print(f"[float64] kernel vs plain forward: "
+          f"{sum(v > 0 for v in diffs.values())} keys differ, largest |diff| "
+          f"{worst[1]} ({worst[0]}) (tolerance 0)")
+    check(worst[1] == 0.0, "float64 kernel-path forward != plain-path: "
+          + ", ".join(f"{k} {v}" for k, v in diffs.items() if v > 0))
+    del ep64_plain
+    out.update(launches=launches, fps_picks_moved=moved)
+
+    # (b) the float64 route against phase 3's float32 forward
+    gaps = {k: float((ep64[k] - ep[k].double()).abs().max()
+                     / max(float(ep64[k].abs().max()), 1e-300))
+            for k in ep64 if ep64[k].dtype.is_floating_point}
+    top = sorted(gaps.items(), key=lambda kv: -kv[1])
+    out["float32_gap_of_max"] = gaps
+    print("[float64] float32 route's largest gap over each key's largest "
+          "magnitude (printed only): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in top[:8]) + "; median "
+          f"{float(np.median(list(gaps.values()))):.2e}")
+
+    # (c) the card against the port on this machine's CPU, B=2
+    t0 = time.time()
+    model_cpu = build_model(cfg64, "cpu", seed=SEED)
+    ep_cpu = eval_forward(model_cpu, batch["point_clouds"][:F64_CPU_B])
+    ep_card = eval_forward(model64, pc[:F64_CPU_B])
+    cpu_s = time.time() - t0
+    flips = {k: int((ep_card[k].cpu() != v).sum()) for k, v in ep_cpu.items()
+             if not v.dtype.is_floating_point}
+    if any(flips.values()):
+        # an index decided on a float32 copy flips when the card's and the
+        # CPU's float64 inputs round to different float32 values
+        va_card = ep_card["vote_xyz"].cpu()
+        va_cpu = ep_cpu["vote_xyz"]
+        print(f"[float64] index flips card vs CPU {flips}: vote_xyz float64 "
+              f"gap {float((va_card - va_cpu).abs().max())}, float32 copies "
+              f"differ at {int((va_card.float() != va_cpu.float()).sum())} "
+              f"coordinates")
+    check(not any(flips.values()), f"float64 card vs CPU: indices differ "
+          f"{flips}")
+    cpu_gaps = {k: float((ep_card[k].cpu() - v).abs().max()
+                         / max(float(v.abs().max()), 1e-300))
+                for k, v in ep_cpu.items() if v.dtype.is_floating_point}
+    worst = max(cpu_gaps.items(), key=lambda kv: kv[1])
+    out.update(cpu_gap_of_max=cpu_gaps, cpu_s=cpu_s)
+    print(f"[float64] card vs CPU at B={F64_CPU_B}: indices bitwise, largest "
+          f"gap over a key's largest magnitude {worst[1]:.3e} ({worst[0]}), "
+          f"bound {F64_CPU_REL} ({cpu_s:.1f} s with the CPU forward)")
+    check(worst[1] <= F64_CPU_REL, f"float64 card vs CPU: {worst}")
+    del model_cpu, ep_cpu, ep_card
+
+    # (d) the backward of the weighted scalar, kernel path against plain
+    x2 = pc[:F64_CPU_B].to(f64)
+    r = np.random.default_rng(17)
+    with torch.no_grad():
+        probe = model64(x2)
+    weights = {p + f: torch.from_numpy(r.normal(size=tuple(
+        probe[p + f].shape))).to(dev) for p in F64_PREFIXES
+        for f in F64_FIELDS if p + f in probe}
+    del probe
+
+    def scalar_grads():
+        model64.zero_grad(set_to_none=True)
+        e = model64(x2)
+        loss = sum((e[k] * w).mean() for k, w in weights.items())
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {n: (torch.zeros_like(p) if p.grad is None
+                                 else p.grad.clone())
+                             for n, p in model64.named_parameters()}
+    reset_launch_counts(counted)
+    loss_k, grads_k = scalar_grads()
+    check(fused_launch_counts(counted) == want,
+          f"float64 scalar forward launches {fused_launch_counts(counted)}")
+    with ops.plain_versions():
+        loss_p, grads_p = scalar_grads()
+    model64.zero_grad(set_to_none=True)
+    norm = float(torch.sqrt(sum((g * g).sum() for g in grads_p.values())))
+    ggaps = {n: float((grads_k[n] - g).abs().max()) / max(
+        float(g.abs().max()), F64_GRAD_FLOOR * norm, 1e-300)
+        for n, g in grads_p.items()}
+    worst = max(ggaps.items(), key=lambda kv: kv[1])
+    out.update(scalar=(loss_k, loss_p), grad_gap=worst)
+    print(f"[float64] weighted scalar {loss_k!r} (plain {loss_p!r}); "
+          f"gradients kernel vs plain path: worst leaf {worst[0]} "
+          f"{worst[1]:.3e} of its scale, bound {F64_GRAD_REL} "
+          f"({len(weights)} terms, {len(ggaps)} leaves)")
+    check(loss_k == loss_p, "float64 scalar differs between the paths")
+    check(worst[1] <= F64_GRAD_REL, f"float64 gradients: {worst}")
+    del grads_k, grads_p, weights, x2
+
+    # (e) one supervised step at B=3, both paths from the same state
+    labeled = batch_to_tensors(
+        make_batch(np.random.default_rng(SEED), TRAIN_B, cfg.num_points), dev,
+        f64)
+    steps = {}
+    for path in ("kernel", "plain"):
+        m = build_model(cfg64, dev, seed=SEED)
+        state = TrainState(m, OptimizerConfig())
+        step = make_train_step(m, cfg64, SCANNET_MEAN_SIZES)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        reset_launch_counts(counted)
+        if path == "plain":
+            with ops.plain_versions():
+                st = step(state, labeled, generator=gen)
+        else:
+            st = step(state, labeled, generator=gen)
+        torch.cuda.synchronize()
+        steps[path] = dict(m=m, state=state, step=step, gen=gen,
+                           stats={k: float(v) for k, v in st.items()},
+                           launches=fused_launch_counts(counted))
+        check(all(np.isfinite(v) for v in steps[path]["stats"].values()),
+              f"float64 {path} step: non-finite stats")
+        check(all(v.dtype == f64 for k, v in st.items()
+                  if k in ("total_loss", "grad_norm", "loss")),
+              f"float64 {path} step: stats not float64")
+    check(steps["kernel"]["launches"] == want,
+          f"float64 step launches {steps['kernel']['launches']}")
+    lk, lp = (steps[p]["stats"]["total_loss"] for p in ("kernel", "plain"))
+    rel = abs(lk - lp) / abs(lp)
+    print(f"[float64] supervised step B={TRAIN_B}: total_loss {lk!r} (plain "
+          f"path {lp!r}, {rel:.2e} apart, bound {F64_STEP_LOSS_REL}), "
+          f"grad_norm {steps['kernel']['stats']['grad_norm']!r}, launches "
+          f"{steps['kernel']['launches']}")
+    check(rel <= F64_STEP_LOSS_REL, "float64 step: total_loss differs from "
+          "the plain path")
+    k = steps["kernel"]
+    del steps["plain"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = wall_ms_per_call(
+        lambda: k["step"](k["state"], labeled, generator=k["gen"]), reps=3)
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    prof, _ = profile_step(
+        lambda: k["step"](k["state"], labeled, generator=k["gen"]),
+        {"fps_kernel": 6, "ball_query_kernel": 5,
+         **fused_train_launches([])}, step_ms)
+    out.update(step_stats=k["stats"], step_loss_rel=rel, step_ms=step_ms,
+               step_peak_bytes=step_peak, step_profile=prof)
+    f32 = report["train"]
+    print(f"[float64] supervised step: {step_ms:.1f} ms/step (3 warm steps), "
+          f"peak memory {step_peak / 2**30:.2f} GiB; phase 8's float32 "
+          f"unfused step {np.mean(f32['step_ms']['unfused']):.1f} ms/step, "
+          f"{f32['routes']['unfused']['peak'] / 2**30:.2f} GiB [{card}]")
+    print(f"[float64] profile of one step: {prof['line']}; phase 8's float32 "
+          f"unfused step: {f32['profile']['unfused']['device_ms']:.3f} ms "
+          f"of kernels")
+    del steps, k
+
+    # (f) times, peak and profile of (a)
+    turns = []
+    for which in ("float32", "float64", "float64", "float32"):
+        m = model if which == "float32" else model64
+        eval_forward(m, pc)
+        turns.append((which, wall_ms_per_call(lambda: eval_forward(m, pc),
+                                              reps=3)))
+    f32_ms = [t for w, t in turns if w == "float32"]
+    f64_ms = [t for w, t in turns if w == "float64"]
+    fps_dev = device_ms(lambda: eval_forward(model64, pc),
+                        KERNEL_NAMES["fps"], reps=3)
+    bq_dev = device_ms(lambda: eval_forward(model64, pc),
+                       KERNEL_NAMES["ball_query"], reps=3)
+    check(fps_dev is not None and bq_dev is not None,
+          "float64: the profiler recorded no FPS or ball-query kernel")
+    fps32 = sum(r["device_ms"] for r in rows["fps"])
+    bq32 = sum(r["device_ms"] for r in rows["ball_query"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eval_forward(model64, pc)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    op_ms = sorted(((e.self_device_time_total / 1e3, e.key) for e in events
+                    if e.device_type == DeviceType.CPU
+                    and e.self_device_time_total > 0), reverse=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_float64_profile.txt"),
+              "w") as f:
+        f.write(f"{card}\nfloat64 forward B={B}: wall {wall_ms:.3f} ms, "
+                f"device kernel time {busy_ms:.3f} ms\n"
+                + events.table(sort_by="self_device_time_total",
+                               row_limit=25) + "\n")
+    out.update(forward_ms=f64_ms, float32_forward_ms=f32_ms,
+               fps_device_ms=fps_dev, ball_query_device_ms=bq_dev,
+               float32_fps_device_ms=fps32,
+               float32_ball_query_device_ms=bq32,
+               profile=dict(wall_ms=wall_ms, device_ms=busy_ms,
+                            by_op=op_ms[:12]))
+    print(f"[float64] forward B={B}: {', '.join(f'{t:.3f}' for t in f64_ms)}"
+          f" ms/batch = {B / np.mean(f64_ms) * 1e3:.2f} scenes/s against "
+          f"phase 3's float32 {', '.join(f'{t:.3f}' for t in f32_ms)} in the "
+          f"same turns (float32, float64, float64, float32); peak memory "
+          f"{out['peak_mem_bytes'] / 2**30:.2f} GiB (float32 "
+          f"{report['peak_mem_bytes'] / 2**30:.2f}) [{card}]")
+    print(f"[float64] kernel device time a forward: fps {fps_dev:.4f} ms "
+          f"(float32 route, phase 6: {fps32:.4f}), idx-only ball query "
+          f"{bq_dev:.4f} ms (phase 6's idx-only rows at the same shapes: "
+          f"{bq32:.4f}); profiled forward wall {wall_ms:.3f} ms, kernel time "
+          f"{busy_ms:.3f} ms (busy share {busy_ms / wall_ms:.3f})")
+    for ms, key in op_ms[:10]:
+        print(f"[float64] {ms:10.3f} ms  {key[:90]}")
+    del model64, ep64
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3306,6 +3625,11 @@ def main() -> int:
     # general_sampling, self-type attention, remat_sa, the legacy losses
     report["surface"], rows["ball_query_msg"] = surface_phase(
         cfg, pc, batch, ep, f1["pred_corners"], card)
+
+    # -- 20. the float64 route: FPS and the idx-only ball query on float32
+    # copies, the grouping and everything else in float64
+    report["float64"] = float64_phase(cfg, dev, pc, batch, model, ep, rows,
+                                      report, card)
     report["kernel_rows"] = rows
     # a time below its bound means a miscounted bound or a broken timer
     for kname, krows in rows.items():
@@ -3336,6 +3660,9 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": max(krows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": None, "matched": True})
+    # the float64 route's forward (phase 20a) launches FPS and the idx-only
+    # ball query on float32 copies of its coordinates
+    summary[0]["float64_launches"] = report["float64"]["launches"]["fps"]
     # the fused kernels, one entry a mode: eval's main path is phase 7's
     # fused eval forward (one chained-kernel call a fused SA layer), train's
     # phase 8's fused supervised step (one pass-plan call a fused SA layer:
@@ -3388,6 +3715,7 @@ def main() -> int:
         "source": "omni_pq_torch/csrc/ball_query.cu",
         "replaces": "omni_pq_tpu/ops/ball_query.py:421",
         "launches": report["surface"]["msg"]["launches"]["ball_query"],
+        "float64_launches": report["float64"]["launches"]["ball_query"],
         "max_abs_err": max(r["max_abs_err"] for r in mrows),
         "ms": sum(r["ms"] for r in mrows),
         "device_ms": sum(r["device_ms"] for r in mrows),

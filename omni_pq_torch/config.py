@@ -4,11 +4,15 @@ The port's own copy of `omni_pq_tpu/config.py`: the ScanNet dataset
 statistics (18 classes, 1 heading bin, 18 size clusters, mean box sizes) and
 the PQ-Transformer architecture. Field names and defaults are the JAX
 package's, so a config converts field by field. `compute_dtype` is the JAX
-package's mixed-precision switch: "bfloat16" runs the Dense chains, the
+package's precision switch: "bfloat16" runs the Dense chains, the
 attention projections and the fused SA-MLP kernel in bfloat16 while the
 parameters, BatchNorm statistics, softmax, LayerNorms and losses stay
 float32 (the library default stays "float32"; the CLIs default to
-bfloat16 as the JAX CLIs do).
+bfloat16 as the JAX CLIs do); "float64" is the JAX package's
+numerics-validation design point: every product, BatchNorm, softmax,
+residual and loss in float64 (FPS and the ball query still decide on
+float32 copies of the coordinates), so a backward-parity check is not
+capped at single precision. No CLI offers it, as none of the JAX CLIs does.
 """
 from __future__ import annotations
 
@@ -111,10 +115,11 @@ class ModelConfig:
     backbone_radii: tuple = (0.2, 0.4, 0.8, 1.2)
     vote_aggregation_nsample: int = 16
     num_points: int = 40000
-    # mixed precision: "float32" or "bfloat16" compute for the Dense path
-    # (parameters stay float32; BatchNorm statistics, softmax, LayerNorm and
-    # the losses stay float32). Same meaning and default as the JAX
-    # package's field.
+    # "float32", "bfloat16" (mixed precision: the Dense path in bfloat16;
+    # parameters, BatchNorm statistics, softmax, LayerNorm and the losses
+    # stay float32) or "float64" (numerics validation: everything in
+    # float64, `models.pointnet2.acc_dtype`). Same meaning and default as
+    # the JAX package's field.
     compute_dtype: str = "float32"
     # recompute each SA layer's unfused SharedMLP + max-pool in the backward
     # instead of keeping its (B, npoint, nsample, C) activations, the step's
@@ -138,3 +143,7 @@ SMOKE_MODEL = dict(num_proposal=16, num_quad_proposal=16, num_decoder_layers=2,
                    hidden_dim=32, nhead=4, dim_feedforward=64,
                    backbone_width=1, backbone_npoints=(128, 64, 32, 16),
                    backbone_nsamples=(8, 8, 8, 8), vote_aggregation_nsample=8)
+
+
+DEFAULT_MODEL = ModelConfig()
+DEFAULT_DATASET = DatasetConfig()

@@ -5,8 +5,10 @@ score the decoded quads with the corner-F1.
 BatchNorm, no dropout); `evaluate_quad_f1` is the decode + F1 loop of its
 `cli/train.py::evaluate` for one batch. Entry points take `device` and run on
 "cuda" unless the caller passes "cpu"; asking for "cuda" without a card
-raises. The model computes at its config's `compute_dtype` (parameters
-float32 either way).
+raises. The model computes at its config's `compute_dtype`; its parameters
+are float32, or float64 for `compute_dtype="float64"` (a built model, or a
+loaded float64 state_dict), and a loaded float32 state_dict stays float32
+under any compute dtype (cast up where it is used, as flax does).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from .config import DatasetConfig, ModelConfig
 from .evals import (QuadAPCalculator, parse_quad_groundtruths,
                     parse_quad_predictions)
 from .models import MultiHeadAttention, PQTransformer
-from .models.pointnet2 import Conv
+from .models.pointnet2 import Conv, acc_dtype, torch_dtype
 
 # the eval decode settings of the JAX package's cli/train.py::evaluate
 EVAL_CONFIG = {"remove_empty_box": False, "use_3d_nms": True,
@@ -62,32 +64,42 @@ def build_model(cfg: ModelConfig = ModelConfig(), device="cuda",
                 seed: int = 0) -> PQTransformer:
     """An eval-mode PQTransformer at `cfg` (its compute_dtype included) with
     random float32 weights made on the CPU from `seed` (the same weights on
-    every device and in either compute dtype), moved to `device`."""
+    every device and in every compute dtype; float64 parameters holding them
+    under float64), moved to `device`."""
     device = resolve_device(device)
     model = PQTransformer(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
+    if cfg.compute_dtype == "float64":
+        model.double()
     return model.to(device).eval()
 
 
 def load_model(state_dict: Mapping[str, torch.Tensor],
                cfg: ModelConfig = ModelConfig(), device="cuda") -> PQTransformer:
     """An eval-mode PQTransformer at `cfg` (its compute_dtype included)
-    holding a reference-layout float32 state_dict (a DDP 'module.' prefix is
-    stripped), on `device`."""
+    holding a reference-layout state_dict (a DDP 'module.' prefix is
+    stripped), on `device`. Its parameters take the state_dict's type: a
+    float64 one (a float64 flax tree, `interop.flax_to_state_dict`) makes a
+    float64 model, with no cast to float32 on the way."""
     device = resolve_device(device)
     if any(k.startswith("module.") for k in state_dict):
         state_dict = {k.removeprefix("module."): v
                       for k, v in state_dict.items()}
     model = PQTransformer(cfg)
+    if any(v.dtype == torch.float64 for v in state_dict.values()):
+        model.double()
     model.load_state_dict(state_dict, strict=True)
     return model.to(device).eval()
 
 
 def eval_forward(model: PQTransformer, point_clouds) -> Dict[str, torch.Tensor]:
     """The eval-mode forward on (B, N, 3+C) clouds (a tensor or an array),
-    on the model's device, at the model's compute dtype."""
+    on the model's device, at the model's compute dtype. The clouds are
+    taken as float32, or float64 under float64 (`acc_dtype`: the JAX
+    package's float64 route takes float64 clouds)."""
     device = next(model.parameters()).device
-    pc = torch.as_tensor(point_clouds, dtype=torch.float32, device=device)
+    dtype = acc_dtype(torch_dtype(model.cfg.compute_dtype))
+    pc = torch.as_tensor(point_clouds, dtype=dtype, device=device)
     with torch.inference_mode():
         return model(pc)
 
@@ -98,8 +110,9 @@ def evaluate_quad_f1(end_points: Mapping, labels: Mapping) -> Dict:
     (`QuadAPCalculator.compute_F1(calculated=True)`).
 
     Returns {"f1", "pred_mask" (B, K), "pred_corners" (per scene, a list of
-    (4, 3) corner arrays)}."""
-    ep = {k: ((v.detach().float() if v.is_floating_point() else v)
+    (4, 3) corner arrays)}. bfloat16 end points are decoded as float32,
+    float32 and float64 ones as they are."""
+    ep = {k: ((v.detach().float() if v.dtype == torch.bfloat16 else v)
               .cpu().numpy() if torch.is_tensor(v) else v)
           for k, v in end_points.items()}
     merged = {**ep, **labels}

@@ -47,7 +47,11 @@ class _Writer:
         return tree
 
     def _put(self, key, value):
-        self.sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+        """float64 arrays (a float64 tree) stay float64, every other type
+        becomes float32."""
+        value = np.asarray(value)
+        dtype = np.float64 if value.dtype == np.float64 else np.float32
+        self.sd[key] = torch.from_numpy(np.array(value, dtype=dtype))
 
     def dense(self, src, dst, kernel_dims):
         node = self._node(self.params, src)

@@ -14,6 +14,9 @@ outward and perfect predictions are penalized (the JAX package's
 tests/test_losses.py::test_pseudo_center_assumes_origin_centered_scenes).
 The reference satisfies it by re-centering labels on the scene's median xy
 at load time (arkitscenes_dataset.py:102-121).
+
+Masks and box counts are float32, as the JAX package casts them, on float64
+end points too.
 """
 from __future__ import annotations
 
@@ -42,10 +45,10 @@ def get_arkit_pc_loss(ep: Dict, weak_labels: Dict
 
     gt_center = weak_labels["center_label"]
     gt_size = weak_labels["size_label"]
-    num_box = weak_labels["num_gt_boxes"].to(qc.dtype)  # (B,)
+    num_box = weak_labels["num_gt_boxes"].to(torch.float32)  # (B,)
     K2 = gt_center.shape[1]
     box_mask = (torch.arange(K2, device=qc.device)[None, :]
-                < num_box[:, None]).to(qc.dtype)
+                < num_box[:, None]).to(torch.float32)
 
     corners = get_2d_box_corners(gt_size, gt_center)  # (B,K2,4,2)
     pts = corners.reshape(B, K2 * 4, 2)
@@ -67,13 +70,13 @@ def get_arkit_pc_loss(ep: Dict, weak_labels: Dict
     projx = px[:, None, :] + a[:, :, None] * k
     projy = py[:, None, :] + b[:, :, None] * k
     w = torch.sqrt((projx - qc[..., 0:1]) ** 2 + (projy - qc[..., 1:2]) ** 2)
-    point_mask = (w < qs[..., 0:1]).to(qc.dtype)
+    point_mask = (w < qs[..., 0:1]).to(torch.float32)
     per_pt = torch.relu(-delta) * point_mask * pts_mask[:, None, :]
     per_quad = per_pt.sum(dim=2)  # (B,Q)
-    quad_mask = (scores > CONF_THRESH).to(qc.dtype)
+    quad_mask = (scores > CONF_THRESH).to(torch.float32)
     scene_scale = torch.where(num_box > 0,
                               1.0 / torch.clamp_min(num_box, 1.0), 0.0)
     pc_loss = (per_quad * quad_mask * scene_scale[:, None]).sum()
-    collisions = ((per_pt > 1e-4).to(qc.dtype) * quad_mask[..., None]
-                  * (num_box > 0)[:, None, None].to(qc.dtype)).sum()
+    collisions = ((per_pt > 1e-4).to(torch.float32) * quad_mask[..., None]
+                  * (num_box > 0)[:, None, None].to(torch.float32)).sum()
     return pc_loss, collisions

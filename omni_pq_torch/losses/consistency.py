@@ -34,7 +34,8 @@ def _align_ema_centers(ema_center, flip_x, flip_y, rot_mat, scale):
     sy = torch.stack([one, -one, one])
     x = torch.where(flip_x[:, None, None] > 0, ema_center * sx, ema_center)
     x = torch.where(flip_y[:, None, None] > 0, x * sy, x)
-    x = torch.bmm(x, rot_mat.transpose(1, 2))
+    dt = torch.promote_types(x.dtype, rot_mat.dtype)
+    x = torch.bmm(x.to(dt), rot_mat.to(dt).transpose(1, 2))
     return x * scale[:, None, None]
 
 

@@ -21,6 +21,9 @@ Randomness: one confident quad per scene, uniformly (p > 0.1), and 10 000
 point indices drawn with replacement, from the caller's torch.Generator. A
 caller may pass that choice instead (`choice=`), so that a test can feed
 both packages the same draw.
+
+The quantiles' positions and the engaged fraction are float32, as the JAX
+package takes them, on float64 end points too.
 """
 from __future__ import annotations
 
@@ -120,10 +123,10 @@ def mixture_keep_mask(dist, use_fitted: bool = False):
 def _quantile_of_sorted(v_sorted, n, q):
     """Linear-interpolation q-quantile of the first n entries of each
     ascending row (n per row, (...,))."""
-    pos = q * torch.clamp_min(n - 1, 0).to(v_sorted.dtype)
+    pos = q * torch.clamp_min(n - 1, 0).to(torch.float32)
     lo = torch.floor(pos).long()
     hi = torch.ceil(pos).long()
-    frac = pos - lo.to(v_sorted.dtype)
+    frac = pos - lo.to(torch.float32)
     v_lo = torch.gather(v_sorted, -1, lo[..., None])[..., 0]
     v_hi = torch.gather(v_sorted, -1, hi[..., None])[..., 0]
     return v_lo * (1.0 - frac) + v_hi * frac
@@ -137,8 +140,10 @@ def masked_quantile(values, mask, q):
 
 
 def _dot(a, b):
-    """(..., P, 3) . (..., 3) -> (..., P), as a batched matmul."""
-    return torch.matmul(a, b[..., :, None])[..., 0]
+    """(..., P, 3) . (..., 3) -> (..., P), as a batched matmul in the
+    promoted type (float32 points against float64 quads: float64)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt)[..., :, None])[..., 0]
 
 
 def quad_point_mixture_metric(score, center, normal, quad_size, pc_ds, pn_ds,
@@ -266,4 +271,4 @@ def gamma_mixture_guide_criterion(
         torch.gather(pc, 1, idx), torch.gather(pn, 1, idx), use_fitted)
     valid = has_quad & enough
     out = [torch.where(valid, m, 0.0).mean() for m in (mn, mv, ms, msc)]
-    return (*out, valid.to(pc.dtype).mean())
+    return (*out, valid.to(torch.float32).mean())

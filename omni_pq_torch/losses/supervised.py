@@ -11,7 +11,10 @@ per-scene loops) and the total get_loss (:412-486), with its weighting:
 
 Inputs: a merged dict `ep` of model end_points plus label tensors under the
 reference's key names, fixed-shape padded (MAX_NUM_OBJ=64, MAX_NUM_QUAD=32);
-`num_gt_boxes` / `num_gt_quads` are (B,) true counts.
+`num_gt_boxes` / `num_gt_quads` are (B,) true counts. Masks, labels and
+counts are float32 wherever the JAX package casts them to float32, on
+float64 end points too: under the float64 route the normalisers
+(sum of a mask + 1e-6, 1 / the box count) are float32 values in both.
 """
 from __future__ import annotations
 
@@ -85,7 +88,7 @@ def _assign(agg_xyz, gt_center, num_gt, near=NEAR_THRESHOLD,
     euclid = torch.sqrt(dist1 + 1e-6)
     label = (euclid < near).to(torch.int32)
     label = torch.where(ind1 >= num_gt[:, None], 0, label)
-    mask = ((euclid < near) | (euclid > far)).to(agg_xyz.dtype)
+    mask = ((euclid < near) | (euclid > far)).to(torch.float32)
     assignment = torch.where(label == 0, K2 - 1, ind1)
     return label, mask, assignment.to(torch.int32)
 
@@ -99,7 +102,7 @@ def compute_objectness_and_box_loss(ep: Dict, mean_size_arr, num_layer: int,
     gt_center = ep["center_label"][:, :, 0:3]
     label, mask, assignment = _assign(ep["aggregated_vote_xyz"], gt_center,
                                       ep["num_gt_boxes"], near, far)
-    labelf = label.to(gt_center.dtype)
+    labelf = label.to(torch.float32)
     n_pos = labelf.sum() + 1e-6
     mean_sizes = torch.as_tensor(mean_size_arr, dtype=gt_center.dtype,
                                  device=gt_center.device)
@@ -172,7 +175,7 @@ def compute_quad_losses(ep: Dict, num_layer: int, stats: Dict,
     gt_center = ep["gt_quad_centers"][:, :, 0:3]
     label, mask, assignment = _assign(ep["aggregated_sample_xyz"], gt_center,
                                       ep["num_gt_quads"], near, far)
-    labelf = label.to(gt_center.dtype)
+    labelf = label.to(torch.float32)
     n_pos = labelf.sum() + 1e-6
 
     score_sum = center_sum = vector_sum = size_sum = 0.0
@@ -234,12 +237,12 @@ def compute_physical_constraints_loss(ep: Dict, mean_size_arr):
                                  device=pred_center.device)
     box_size = mean_sizes[pred_size_class] + pred_size_res
 
-    objectness = ep[f"{prefix}objectness_label"].to(pred_center.dtype)
+    objectness = ep[f"{prefix}objectness_label"].to(torch.float32)
     sem = _take(ep["sem_cls_label"], ep[f"{prefix}object_assignment"])
     allowed = torch.ones_like(sem, dtype=torch.bool)
     for c in PC_EXCLUDED_CLASSES:
         allowed = allowed & (sem != c)
-    box_mask = objectness * allowed.to(pred_center.dtype)  # (B,K)
+    box_mask = objectness * allowed.to(torch.float32)  # (B,K)
     num_box = box_mask.sum(dim=1)  # (B,)
 
     corners = get_2d_box_corners(box_size, pred_center)  # (B,K,4,2)
@@ -250,7 +253,7 @@ def compute_physical_constraints_loss(ep: Dict, mean_size_arr):
     qc = ep[f"{prefix}quad_center"]
     nv = ep[f"{prefix}normal_vector"]
     qs = ep[f"{prefix}quad_size"]
-    quad_label = ep[f"{prefix}quad_label"].to(pred_center.dtype)  # (B,Q)
+    quad_label = ep[f"{prefix}quad_label"].to(torch.float32)  # (B,Q)
 
     a, b = nv[..., 0], nv[..., 1]  # (B,Q)
     d = -(a * qc[..., 0] + b * qc[..., 1])
@@ -261,15 +264,15 @@ def compute_physical_constraints_loss(ep: Dict, mean_size_arr):
     projx = px[:, None, :] + a[:, :, None] * k
     projy = py[:, None, :] + b[:, :, None] * k
     w = torch.sqrt((projx - qc[..., 0:1]) ** 2 + (projy - qc[..., 1:2]) ** 2)
-    point_mask = (w < qs[..., 0:1]).to(pred_center.dtype)
+    point_mask = (w < qs[..., 0:1]).to(torch.float32)
     per_pt = torch.relu(-delta) * point_mask * pts_mask[:, None, :]
     per_quad = per_pt.sum(dim=2)  # (B,Q)
     scene_scale = torch.where(num_box > 0,
                               1.0 / torch.clamp_min(num_box, 1.0), 0.0)
     pc_loss = (per_quad * quad_label * scene_scale[:, None]).sum()
-    collisions = ((per_pt > 1e-4).to(pred_center.dtype)
+    collisions = ((per_pt > 1e-4).to(torch.float32)
                   * quad_label[..., None]
-                  * (num_box > 0)[:, None, None].to(pred_center.dtype)).sum()
+                  * (num_box > 0)[:, None, None].to(torch.float32)).sum()
     return pc_loss, collisions
 
 

@@ -24,7 +24,9 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 def _unrotate(xyz, flip_x, flip_y, rot_mat):
     """Teacher-frame coordinates (B,K,3) back in the student's frame
     (loss_helper_pq.py:504-536: rotz(-angle), then the flips)."""
-    out = torch.einsum("bkj,bij->bki", xyz, rot_mat.transpose(1, 2))
+    dt = torch.promote_types(xyz.dtype, rot_mat.dtype)
+    out = torch.einsum("bkj,bij->bki", xyz.to(dt),
+                       rot_mat.to(dt).transpose(1, 2))
     out = torch.where(flip_y[:, None, None] > 0,
                       out * out.new_tensor([1.0, -1.0, 1.0]), out)
     return torch.where(flip_x[:, None, None] > 0,

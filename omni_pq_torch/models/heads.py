@@ -1,9 +1,11 @@
 """Prediction heads for object boxes and layout quads (the port of
 `omni_pq_tpu/models/heads.py`). Each head is two Conv+BN+ReLU layers followed
 by parallel 1x1-conv heads; predicted centres are offsets from `base_xyz`.
-Under a bfloat16 compute dtype the trunk's convolutions run in bfloat16 and
-its BatchNorms in float32; the output heads have no compute dtype and run in
-float32, as in the JAX package."""
+The trunk's convolutions run at the compute dtype; its BatchNorms and the
+output heads have none and follow flax's `dtype=None` promotion: they
+compute in the promoted type of their input and parameters, at least
+float32 (so float32 under float32 and bfloat16, float64 under float64), as
+in the JAX package."""
 from __future__ import annotations
 
 import math

@@ -12,15 +12,19 @@ to TF32. `SAModuleVotes(fused=True)` runs its MLP + max-pool through
 `SAModuleVotes(remat=True)` recomputes its unfused MLP + max-pool in the
 backward (`ModelConfig.remat_sa`).
 
-Mixed precision follows the JAX package (flax's `dtype` attributes): a
-module built with a compute dtype holds it as `compute_dtype`, and
+Precision follows the JAX package (flax's `dtype` attributes): a module
+built with a compute dtype holds it as `compute_dtype`, and
 `with_compute_dtype` switches every such module of a model for a while (the
 bfloat16 EMA teacher). A `Conv` with a compute dtype casts its input,
 weight and bias to it (flax `nn.Dense(dtype=...)`), one without computes in
-the promoted type of its input and its float32 weight (a Dense with no
-dtype). `BatchNorm` takes its statistics and normalises in float32 and
-returns its compute dtype, float32 when it has none (flax
-`nn.BatchNorm(dtype=...)`, whose statistics are float32 either way).
+the promoted type of its input and its weight (a Dense with no dtype).
+`BatchNorm` takes its statistics and normalises in `acc_dtype` of its input
+(float32 under float32 and bfloat16, float64 under float64) and returns its
+compute dtype, that type when it has none (flax `nn.BatchNorm(dtype=...)`).
+Under float64 the parameters may be float64 (`model.double()`, the design
+point) or float32 (cast up exactly where they are used, as flax does); in
+eval mode a BatchNorm with float32 statistics and scale takes
+rsqrt(var + eps) * scale in float32, as flax's `_normalize` does.
 """
 from __future__ import annotations
 
@@ -41,7 +45,15 @@ from ..ops import matmul as mm
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float64": torch.float64}
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulation dtype of BatchNorm, softmax and the residual paths
+    (the JAX package's `acc_dtype`): float32 under float32 and bfloat16,
+    float64 under float64."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -75,10 +87,12 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     """flax nn.Dense in `dtype`: x @ weight.T with x, weight and bias cast to
     it. Below float32 the product is rounded to `dtype` before the bias is
     added (two roundings, as flax adds the bias after the dot); in float32
-    one fused F.linear. A bfloat16 product sums in float32
-    (`ops.matmul.linear`)."""
+    and float64 one fused F.linear: there flax's separate bias add moves a
+    result by at most one rounding of its type, below what either route is
+    held to, and the card runs one GEMM with the bias in its epilogue. A
+    bfloat16 product sums in float32 (`ops.matmul.linear`)."""
     w = weight.to(dtype)
-    if dtype == torch.float32:
+    if dtype.itemsize >= 4:
         return F.linear(x.to(dtype), w, None if bias is None
                         else bias.to(dtype))
     y = mm.linear(x.to(dtype), w)
@@ -126,15 +140,20 @@ def _recompute(dp):
 def update_running_stats(bn: nn.BatchNorm1d, mean: torch.Tensor,
                          var: torch.Tensor) -> None:
     """flax's running-stat update: new = 0.9 * old + 0.1 * batch, with the
-    biased batch variance (not nn.BatchNorm1d's unbiased one). A no-op in
-    the backward's recompute of a rematerialised forward."""
+    biased batch variance (not nn.BatchNorm1d's unbiased one). The new
+    statistic takes the promoted type, as a flax variable does: float64
+    batch statistics turn float32 running stats into float64 ones. A no-op
+    in the backward's recompute of a rematerialised forward."""
     if _RECOMPUTING:
         return
     with torch.no_grad():
-        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
-                              + (1 - BN_MOMENTUM) * mean)
-        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
-                             + (1 - BN_MOMENTUM) * var)
+        for name, batch in (("running_mean", mean), ("running_var", var)):
+            old = getattr(bn, name)
+            new = BN_MOMENTUM * old + (1 - BN_MOMENTUM) * batch
+            if new.dtype == old.dtype:
+                old.copy_(new)
+            else:
+                setattr(bn, name, new)
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -154,7 +173,7 @@ class BatchNorm(nn.BatchNorm1d):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        x = x.to(acc_dtype(x.dtype))
         dp = parallel.current() if self.training else None
         if dp is not None:
             mean, var = parallel.moments(x, dp)
@@ -196,7 +215,8 @@ class SharedMLP(nn.Sequential):
     """1x1 conv (no bias) + BatchNorm + ReLU stack over the last axis.
     `channels` includes the input width: [cin, c1, c2, ...]. In `dtype`
     (flax SharedMLP(dtype=...)): each product in it, each BatchNorm's
-    statistics and normalisation in float32 and its output in it."""
+    statistics and normalisation in `acc_dtype(dtype)` and its output in
+    it."""
 
     def __init__(self, channels: Sequence[int],
                  dtype: torch.dtype = torch.float32):
@@ -425,8 +445,8 @@ class LFPModuleMSG(nn.Module):
 class FPModule(nn.Module):
     """Feature propagation: 3-NN inverse-distance upsampling + SharedMLP;
     channel order [interpolated known, skip] like the reference. The
-    interpolation weights are float32, so the MLP's input is float32 under
-    either compute dtype, as in the JAX package."""
+    interpolation weights have the coordinates' type, float32 under float32
+    and bfloat16 and float64 under float64, as in the JAX package."""
 
     def __init__(self, channels: Sequence[int],
                  dtype: torch.dtype = torch.float32):

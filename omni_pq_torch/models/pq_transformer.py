@@ -13,9 +13,11 @@ decoder's dropout on; the masks come from the generator passed to forward.
 `cfg.compute_dtype` sets every module's compute dtype as the JAX package
 threads it, and `cfg.remat_sa` the SA layers' remat (backbone and vote
 aggregation); the decoder's query and key projections have none and compute
-in float32, so each `end_points` key has the dtype JAX gives it (the SA,
-FP and seed features and the cluster features in bfloat16 under bfloat16,
-everything else float32, indices int32).
+in the promoted type of their input and parameters, so each `end_points`
+key has the dtype JAX gives it (the SA, FP and seed features and the
+cluster features in bfloat16 under bfloat16, everything else float32,
+indices int32; under float64 every floating key float64, given float64
+clouds).
 """
 from __future__ import annotations
 

@@ -16,18 +16,24 @@ voting and head convolutions in bfloat16 with float32 BatchNorm; the q/k/v
 projections in bfloat16, the logits accumulated and the softmax taken in
 float32, the weights cast to bfloat16 for the product with v, the result
 back in float32 and `out_proj` in float32; the FFN in bfloat16, its output
-back in float32; LayerNorms and position embeddings in float32.
+back in float32; LayerNorms and position embeddings in float32. Each
+"float32" there is `acc_dtype` of the compute dtype (the JAX package's
+`acc_dtype`): under float64 every one of them is float64, and the
+position embeddings and LayerNorms compute in the promoted type of their
+input and parameters (float64 on float64 inputs, float32 parameters cast up
+exactly, as flax's modules with no dtype do).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import ops, parallel
 from ..ops import matmul as mm
-from .pointnet2 import BatchNorm, Conv, linear
+from .pointnet2 import BatchNorm, Conv, acc_dtype, linear
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
@@ -74,11 +80,11 @@ class VotingModule(nn.Module):
 
     def forward(self, seed_xyz, seed_features):
         """seed_xyz (B,S,3), seed_features (B,S,C) -> vote_xyz, vote_features
-        (float32: the offsets are taken back to float32 before they are
-        added)."""
+        (the offsets are taken to the accumulation dtype before they are
+        added: float32, float64 under float64)."""
         net = torch.relu(self.bn1(self.conv1(seed_features)))
         net = torch.relu(self.bn2(self.conv2(net)))
-        net = self.conv3(net).float()
+        net = self.conv3(net).to(acc_dtype(self.conv3.compute_dtype))
         return seed_xyz + net[..., 0:3], seed_features + net[..., 3:]
 
 
@@ -133,7 +139,8 @@ class MultiHeadAttention(nn.Module):
 
     attention_type="self" is the reference fork's one deviation
     (multi_head_attention.py:393-396), as the JAX module has it: the output
-    projection takes query - attention output (in float32) instead of the
+    projection takes query - attention output (in the accumulation dtype)
+    instead of the
     attention output. No reference script reaches it."""
 
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.0,
@@ -149,28 +156,41 @@ class MultiHeadAttention(nn.Module):
         self.compute_dtype = dtype
 
     def forward(self, q, k, v, generator=None):
-        """q (B,Lq,D), k/v (B,Lk,D) -> (B,Lq,D) float32."""
+        """q (B,Lq,D), k/v (B,Lk,D) -> (B,Lq,D) in the accumulation dtype
+        (float32, float64 under float64)."""
         B, Lq, D = q.shape
         H = self.nhead
         hd = D // H
         dt = self.compute_dtype
+        acc = acc_dtype(dt)
         w, b = self.in_proj_weight, self.in_proj_bias
         qp = linear(q, w[:D], b[:D], dt).reshape(B, Lq, H, hd)
         kp = linear(k, w[D:2 * D], b[D:2 * D], dt)
         vp = linear(v, w[2 * D:], b[2 * D:], dt)
         kp = kp.reshape(B, -1, H, hd)
         vp = vp.reshape(B, -1, H, hd)
-        # logits accumulated in float32 (a product of two bfloat16 values is
-        # exact in float32), softmax in float32
-        logits = torch.einsum("bqhd,bkhd->bhqk", qp.float(),
-                              kp.float()) / math.sqrt(hd)
+        # logits accumulated in acc (a product of two bfloat16 values is
+        # exact in float32), softmax in acc
+        logits = torch.einsum("bqhd,bkhd->bhqk", qp.to(acc),
+                              kp.to(acc)) / math.sqrt(hd)
         weights = dropout(torch.softmax(logits, dim=-1), self.dropout,
                           self.training, generator)
         out = mm.matmul(weights.to(dt), vp.transpose(1, 2)).transpose(1, 2)
-        out = out.float().reshape(B, Lq, D)
+        out = out.to(acc).reshape(B, Lq, D)
         if self.attention_type == "self":
-            out = q.float() - out
+            out = q.to(acc) - out
         return self.out_proj(out)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm in the promoted type of its input and its parameters
+    (flax's LayerNorm with no dtype): float32 parameters meet a float64
+    input cast up exactly; in float32 it is nn.LayerNorm unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.layer_norm(x.to(dt), self.normalized_shape,
+                            self.weight.to(dt), self.bias.to(dt), self.eps)
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -193,9 +213,9 @@ class TransformerDecoderLayer(nn.Module):
                             dtype=dtype)
         self.linear2 = Conv(dim_feedforward, d_model, kernel_dims=0,
                             dtype=dtype)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
+        self.norm3 = LayerNorm(d_model, eps=1e-5)
         self.self_posembed = self_posembed
         self.cross_posembed = cross_posembed
 
@@ -213,5 +233,6 @@ class TransformerDecoderLayer(nn.Module):
         kv = key + k_embed
         attn = self.multihead_attn(query + q_embed, kv, kv, generator)
         query = self.norm2(query + drop(attn))
-        ff = self.linear2(drop(torch.relu(self.linear1(query)))).float()
+        ff = self.linear2(drop(torch.relu(self.linear1(query)))).to(
+            acc_dtype(self.linear2.compute_dtype))
         return self.norm3(query + drop(ff))

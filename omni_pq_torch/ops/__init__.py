@@ -14,7 +14,7 @@ from .ball_query import (ball_query, ball_query_group, ball_query_group_plain,
                          ball_query_group_feats, ball_query_group_feats_plain)
 from .fused_mlp import (fused_mlp_pool, fused_mlp_pool_plain,
                         supports as fused_mlp_supports)
-from .nn_distance import nn_distance
+from .nn_distance import nn_distance, huber_loss, smoothl1_loss
 from .interpolate import (three_nn, gather_points, group_points,
                           three_interpolate, interpolate_features)
 from .reference import fps_ref, ball_query_ref, three_nn_ref
@@ -23,7 +23,8 @@ __all__ = [
     "plain_versions", "fps", "fps_plain", "ball_query", "ball_query_group",
     "ball_query_group_plain", "ball_query_group_feats",
     "ball_query_group_feats_plain", "fused_mlp_pool", "fused_mlp_pool_plain",
-    "fused_mlp_supports", "nn_distance", "three_nn", "gather_points", "group_points",
+    "fused_mlp_supports", "nn_distance", "huber_loss", "smoothl1_loss",
+    "three_nn", "gather_points", "group_points",
     "three_interpolate", "interpolate_features", "fps_ref", "ball_query_ref",
     "three_nn_ref",
 ]

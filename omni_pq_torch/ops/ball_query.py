@@ -18,6 +18,15 @@ plain torch too (`index_add_`, whose atomics on the card add in no fixed
 order). `ball_query_group_feats` adds grouped features = features[idx], whose
 cotangent scatter-adds into the features the same way (`_bqg_feats_bwd`).
 `ball_query` has no gradient, like the reference's BallQuery.
+
+float64 coordinates (the float64 route, `ModelConfig(compute_dtype=
+"float64")`) take the JAX package's oracle semantics
+(`omni_pq_tpu/interop/oracle_ops.py`): the indices are decided on float32
+copies of the coordinates, by the idx-only kernel on the card (its launch
+counts as `ball_query`'s) and by `ball_query_ref` on the CPU, and the
+grouped values are then gathered from the float64 tensors, so they never
+pass through float32; their gradient is the gather's own (a scatter-add
+into the points, minus the K-sum into the centres), in float64.
 """
 from __future__ import annotations
 
@@ -32,7 +41,8 @@ from .reference import ball_query_ref, radius_sq
 
 def ball_query_group_plain(radius: float, nsample: int, xyz: torch.Tensor,
                            new_xyz: torch.Tensor):
-    """Plain version of `ball_query_group`: ball_query_ref, then the gather."""
+    """Plain version of `ball_query_group`: ball_query_ref (on float32
+    copies), then the gather in the coordinates' type."""
     idx = ball_query_ref(radius, nsample, xyz, new_xyz)
     return idx, group_points(xyz, idx) - new_xyz[:, :, None, :]
 
@@ -117,6 +127,17 @@ def ball_query_group_backward(idx: torch.Tensor, g: torch.Tensor, N: int):
     return scatter_add_rows(idx, g, N), -g.sum(dim=2)
 
 
+def _group_float64(radius, nsample, xyz, new_xyz, features=None):
+    """The grouping entry points on float64 coordinates: the idx-only
+    `ball_query` on their float32 copies, then float64 gathers that autograd
+    differentiates."""
+    idx = ball_query(radius, nsample, xyz, new_xyz)
+    grouped = group_points(xyz, idx) - new_xyz[:, :, None, :]
+    if features is None:
+        return idx, grouped
+    return idx, grouped, group_points(features, idx)
+
+
 class _BallQueryGroup(torch.autograd.Function):
     """Both grouping entry points: features None gives (idx, grouped), a
     feature tensor adds the grouped features and their gradient. `counter`
@@ -154,7 +175,10 @@ def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor,
     (B,N,3) points x (B,S,3) centres -> (idx (B,S,nsample) int32,
     grouped (B,S,nsample,3) float32) with grouped == xyz[idx] - centre. A
     centre with no in-radius hit gets idx 0 and rows xyz[0] - centre.
-    Differentiable in xyz and new_xyz (see the module docstring)."""
+    Differentiable in xyz and new_xyz (see the module docstring). float64
+    coordinates give float64 grouped values (see the module docstring)."""
+    if xyz.dtype == torch.float64:
+        return _group_float64(radius, nsample, xyz, new_xyz)
     return _BallQueryGroup.apply(radius, nsample, xyz, new_xyz, None,
                                  ball_query_group)
 
@@ -163,9 +187,12 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
                new_xyz: torch.Tensor) -> torch.Tensor:
     """(B,N,3) points x (B,S,3) centres -> (B,S,nsample) int32 neighbour
     indices: the first <= nsample points by index with d^2 < r^2, unfilled
-    slots repeating the first hit (0 when there is none)."""
+    slots repeating the first hit (0 when there is none). float64
+    coordinates are queried on their float32 copies."""
     if xyz.device.type == "cpu":
         return ball_query_ref(radius, nsample, xyz, new_xyz)
+    if xyz.dtype == torch.float64:
+        xyz, new_xyz = xyz.detach().float(), new_xyz.detach().float()
     idx, _, _ = _launch(radius, nsample, xyz, new_xyz, emit_values=False)
     ball_query.launches += 1
     return idx
@@ -181,7 +208,9 @@ def ball_query_group_feats(radius: float, nsample: int, xyz: torch.Tensor,
     grouped == xyz[idx] - centre and grouped features == features[idx]. A
     centre with no in-radius hit gets idx 0: rows xyz[0] - centre and
     features[0]. Differentiable in xyz, new_xyz and features (see the module
-    docstring)."""
+    docstring). float64 coordinates: see the module docstring."""
+    if xyz.dtype == torch.float64:
+        return _group_float64(radius, nsample, xyz, new_xyz, features)
     return _BallQueryGroup.apply(radius, nsample, xyz, new_xyz, features,
                                  ball_query_group_feats)
 

@@ -28,7 +28,12 @@ def fps(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Furthest point sampling: (B, N, 3) float32 -> (B, npoint) int32.
 
     Index 0 is always selected first; near-origin points (padding) are never
-    selected. No gradient, like the reference's FurthestPointSampling."""
+    selected. No gradient, like the reference's FurthestPointSampling.
+    float64 coordinates are sampled on their float32 copy, on either device
+    (the JAX package's fps casts so too): the float64 route launches the
+    same kernel."""
+    if xyz.dtype == torch.float64:
+        xyz = xyz.detach().float()
     if xyz.device.type == "cpu":
         return fps_plain(xyz, npoint)
     cuda.check_cuda_tensor("fps xyz", xyz, torch.float32, 3, last=3)

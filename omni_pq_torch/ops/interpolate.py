@@ -18,9 +18,19 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor):
     ties); the 3 chosen distances are then recomputed directly, so a point
     that coincides with a known point gets exactly 0 (interpolate.py:34-62).
     No gradient flows to the coordinates, as in the JAX package and the
-    reference's ThreeNN."""
+    reference's ThreeNN.
+
+    The cross term u.k is float32 whatever the coordinates' type: the JAX
+    package takes it with `preferred_element_type=float32`, and on float64
+    operands XLA computes the product in float64 and rounds the result to
+    float32 (it does not round the operands: on 4096 random pairs the
+    rounded float64 result matches every term of XLA's, the product of
+    the rounded operands 66 % of them; tests/test_torch_port_float64.py::
+    test_three_nn_cross_term_is_the_rounded_float64_product). So under
+    float64 the selection follows that float32 term in float64 arithmetic,
+    and the chosen distances are float64."""
     unknown, known = unknown.detach(), known.detach()
-    cross = torch.bmm(unknown, known.transpose(1, 2))
+    cross = torch.bmm(unknown, known.transpose(1, 2)).float()
     d2 = ((unknown * unknown).sum(-1)[:, :, None] - 2.0 * cross
           + (known * known).sum(-1)[:, None, :]).clamp_min(0.0)
     idxs = []

@@ -40,8 +40,10 @@ def radius_sq(radius: float) -> float:
 
 
 def fps_ref(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """Furthest point sampling: (B, N, 3) float32 -> (B, npoint) int32."""
-    xyz = xyz.detach()  # indices only: no graph to build
+    """Furthest point sampling: (B, N, 3) float32 -> (B, npoint) int32.
+    Other coordinate types are sampled on their float32 copy, as the JAX
+    package's oracle (`interop/oracle_ops.py`) samples them."""
+    xyz = xyz.detach().float()  # indices only: no graph to build
     B, N, _ = xyz.shape
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     valid = x * x + y * y + z * z > FPS_SKIP_NORM_SQ
@@ -63,8 +65,10 @@ def ball_query_ref(radius: float, nsample: int, xyz: torch.Tensor,
                    new_xyz: torch.Tensor) -> torch.Tensor:
     """(B,N,3) points x (B,S,3) centres -> (B,S,nsample) int32 indices.
 
-    One batch row at a time, so the (S, N) distance matrix stays small."""
-    xyz, new_xyz = xyz.detach(), new_xyz.detach()  # indices only
+    One batch row at a time, so the (S, N) distance matrix stays small.
+    The decisions are made on float32 copies of the coordinates, whatever
+    their type, as the JAX package's oracle makes them."""
+    xyz, new_xyz = xyz.detach().float(), new_xyz.detach().float()
     N = xyz.shape[1]
     r2 = radius_sq(radius)
     cols = torch.arange(N, dtype=torch.int32, device=xyz.device)

@@ -13,7 +13,10 @@ arithmetic is optax's, written out in torch:
     mu   <- (1-b1) g + b1 mu;  nu <- (1-b2) g^2 + b2 nu
     u    <- (mu / (1-b1^t)) / (sqrt(nu / (1-b2^t)) + eps) + wd * p
     p    <- p - lr(t-1) * u
-so it is not torch.optim.AdamW (which orders the decay and the bias
+with the bias corrections 1-b^t in float32, or in float64 for float64
+parameters (optax takes them in JAX's default float type, float64 once
+64-bit types are on, as the float64 route runs), and lr in float32 (the
+schedule's). So it is not torch.optim.AdamW (which orders the decay and the bias
 corrections differently). It runs as multi-tensor (`torch._foreach_*`)
 ops, a few launches a step instead of several per parameter.
 """
@@ -54,6 +57,12 @@ def is_decoder_param(name: str) -> bool:
     'decoder' (decoder layers and their position embeddings, the query/key
     projections)."""
     return "decoder" in name.split(".")[0]
+
+
+def _bias_correction(decay: float, t: int, dtype: torch.dtype) -> float:
+    """1 - decay^t, in float64 for float64 parameters, else in float32."""
+    ft = np.float64 if dtype == torch.float64 else np.float32
+    return float(ft(1) - ft(decay) ** ft(t))
 
 
 class AdamW(torch.optim.Optimizer):
@@ -109,9 +118,9 @@ class AdamW(torch.optim.Optimizer):
         for group in self.param_groups:
             b1, b2, eps = group["b1"], group["b2"], group["eps"]
             lr = group["schedule"](self.count)
-            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(t))
-            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(t))
             ps = group["params"]
+            bc1 = _bias_correction(b1, t, ps[0].dtype)
+            bc2 = _bias_correction(b2, t, ps[0].dtype)
             gs = [by_param[id(p)] for p in ps]
             for p in ps:
                 if "mu" not in self.state[p]:

@@ -79,9 +79,12 @@ class TrainFlags:
 SUPERVISED = TrainFlags(ema=False, gamma_mixture=False, arkit=False)
 
 
-def batch_to_tensors(batch: Mapping, device) -> Dict[str, torch.Tensor]:
+def batch_to_tensors(batch: Mapping, device,
+                     dtype: torch.dtype = torch.float32
+                     ) -> Dict[str, torch.Tensor]:
     """A loader batch (numpy arrays) as tensors on `device`: floats as
-    float32, integers as int64, booleans kept."""
+    `dtype` (float32; float64 for the float64 route, whose clouds and
+    labels are float64), integers as int64, booleans kept."""
     out = {}
     for k, v in batch.items():
         if torch.is_tensor(v):
@@ -89,7 +92,8 @@ def batch_to_tensors(batch: Mapping, device) -> Dict[str, torch.Tensor]:
             continue
         a = np.asarray(v)
         if a.dtype.kind == "f":
-            a = a.astype(np.float32)
+            a = a.astype({torch.float32: np.float32,
+                          torch.float64: np.float64}[dtype])
         elif a.dtype.kind in "iu":
             a = a.astype(np.int64)
         elif a.dtype.kind != "b":

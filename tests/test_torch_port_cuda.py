@@ -25,7 +25,10 @@ with finite stats and the launch counts of its two forwards. SAModuleMSG
 (fps and the idx-only ball query) and LFPModuleMSG (ball_query_group around
 centres outside the cloud) on the kernels equal their plain path bitwise;
 the remat_sa step equals the step without it: the same launches, the BN
-running stats bitwise, stats and gradients within 1e-5.
+running stats bitwise, stats and gradients within 1e-5. The float64 route
+(--smoke widths) launches FPS and the idx-only ball query on float32 copies
+of its coordinates, equals its plain path bitwise and the CPU within 1e-9
+of each end point's largest magnitude.
 """
 import contextlib
 import dataclasses
@@ -194,7 +197,18 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     assert (ops.fps.launches, ops.ball_query_group.launches,
             ops.ball_query.launches) == tuple(n + 1 for n in before)
     with pytest.raises(ValueError, match="float32"):
-        ops.fps(x.double(), 16)
+        ops.fps(x.half(), 16)
+    with pytest.raises(ValueError, match="float32"):
+        ops.ball_query(0.5, 8, x.half(), x[:, :16].half())
+    # float64 coordinates (the float64 route) go through the kernels on
+    # their float32 copies: one launch each, the float32 result
+    before = (ops.fps.launches, ops.ball_query.launches)
+    assert torch.equal(ops.fps(x.double(), 16), ops.fps(x, 16))
+    ctr = x[:, :16].contiguous()
+    assert torch.equal(ops.ball_query(0.5, 8, x.double(), ctr.double()),
+                       ops.ball_query(0.5, 8, x, ctr))
+    assert (ops.fps.launches, ops.ball_query.launches) == (
+        before[0] + 2, before[1] + 2)
     with pytest.raises(ValueError, match="contiguous"):
         ops.fps(x.transpose(0, 1), 16)
     cap = fps_module.max_points()  # a 16-CTA cluster's registers
@@ -881,3 +895,31 @@ def test_remat_sa_step_on_card_matches_the_step_without_it(dev, fused):
     norm = float(torch.sqrt(sum((g * g).sum() for g in g0.values())))
     gap = max(float((g1[n] - g0[n]).abs().max()) for n in g0)
     assert gap <= 1e-5 * norm
+
+
+def test_float64_forward_on_card_matches_cpu(dev):
+    cfg = ModelConfig(**{**SMOKE_MODEL, "num_points": 512,
+                         "compute_dtype": "float64"})
+    pc = make_batch(np.random.default_rng(0), 2, 512)["point_clouds"]
+    model = build_model(cfg, dev, seed=3)
+    counted = (ops.fps, ops.ball_query, ops.ball_query_group,
+               ops.fused_mlp_pool)
+    for fn in counted:
+        fn.launches = 0
+    ep = eval_forward(model, pc)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counted] == [6, 5, 0, 0]
+    with ops.plain_versions():
+        ep_plain = eval_forward(model, pc)
+    ep_cpu = eval_forward(build_model(cfg, "cpu", seed=3), pc)
+    assert set(ep) == set(ep_cpu)
+    for k, want in ep_cpu.items():
+        got = ep[k].cpu()
+        assert got.dtype == want.dtype, k
+        assert torch.equal(got, ep_plain[k].cpu()), k
+        if want.dtype.is_floating_point:
+            assert want.dtype == torch.float64, k
+            gap = float((got - want).abs().max())
+            assert gap <= 1e-9 * float(want.abs().max()), (k, gap)
+        else:
+            assert torch.equal(got, want), k
