@@ -9,6 +9,7 @@ numpy decode, corner-F1 and mAP (`evals`), the ScanNet and ARKitScenes
 loaders, the offline preprocessing and synthetic scenes (`data`, with the
 native loader core in `native`), metric logging and PLY dumps (`utils`),
 the weight bridge from the JAX package (`interop`), and the entry points
-(`infer`, `cli.train`, `cli.eval`, `cli.infer`). It imports torch, numpy
-and scipy, never JAX or omni_pq_tpu.
+(`infer`, `cli.train`, `cli.eval`, `cli.infer`) and the experiment drivers
+(`experiments`). It imports torch, numpy and scipy, never JAX or
+omni_pq_tpu.
 """

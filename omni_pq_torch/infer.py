@@ -41,22 +41,33 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+# the standard deviation of a unit normal truncated to [-2, 2]: flax's
+# variance_scaling divides its truncated draws' scale by it
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's `nn.initializers.lecun_normal()` (nn.Dense's default kernel
+    init) on a weight of shape (out, in, ...): a normal truncated at two of
+    its standard deviations, scaled so that the variance is 1/fan_in."""
+    std = math.sqrt(1.0 / weight.shape[1]) / TRUNC_NORMAL_STD
+    torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                generator=generator)
+
+
 @torch.no_grad()
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Random weights from `generator`: every 1x1 conv / linear / attention
-    projection ~ N(0, 1/fan_in) (flax's default scale), biases 0. BatchNorm
-    and LayerNorm keep their constructor values (scale 1, bias 0, running
-    stats 0/1)."""
+    projection from flax's lecun_normal (`lecun_normal_`), biases 0.
+    BatchNorm and LayerNorm keep their constructor values (scale 1, bias 0,
+    running stats 0/1)."""
     for m in model.modules():
         if isinstance(m, Conv):
-            m.weight.normal_(0.0, 1.0 / math.sqrt(m.weight.shape[1]),
-                             generator=generator)
+            lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, MultiHeadAttention):
-            m.in_proj_weight.normal_(
-                0.0, 1.0 / math.sqrt(m.in_proj_weight.shape[1]),
-                generator=generator)
+            lecun_normal_(m.in_proj_weight, generator)
             m.in_proj_bias.zero_()
 
 
