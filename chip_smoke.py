@@ -204,14 +204,20 @@ when every phase passed:
      main(), at full ModelConfig() width, outputs in a temporary directory
      removed after: convergence (10 supervised steps on the 4 rooms, B=4,
      the corner-F1 after steps 1 and 10), fitted_mixture (5 semi steps of
-     each criterion, 3 + 3 scenes) and semi_sup_ab's gamma_ft arm
-     (AB_PRETRAIN=3, AB_STEPS=6: 3 supervised steps, the teacher
-     backfilled, 3 semi steps; the held-out F1 of the student after step 1
-     and of student and teacher after step 6). The launch counts are set to
-     0 before each driver and read after: 6 FPS and 5 ball-query-group
-     launches a forward (12, 20 and 12 forwards); finite losses, the
-     backfill, gamma_engaged_frac recorded; ms/step, eval seconds and peak
-     memory printed. The kernels line carries each driver's launches.
+     each criterion, 3 + 3 scenes) and each of semi_sup_ab's six Protocol-B
+     arms on its own (sup_ft, ema_ft, gamma_ft, gamma_fixed_ft, arkit_ft,
+     arkit_centered_ft; AB_PRETRAIN=3, AB_STEPS=6: 3 supervised steps, the
+     teacher backfilled, 3 steps of the arm; the held-out F1 of the
+     student after step 1 and of the student, and the teacher where the
+     arm has one, after step 6). The launch counts are set to 0 before
+     each run and read after: 6 FPS and 5 ball-query-group launches a
+     forward (12, 20, and 12 forwards an arm, 8 for sup_ft); finite losses,
+     the backfill, gamma_engaged_frac where the arm has the criterion; the
+     ARKit arms' arkit_collisions > 0, their weak pools without quad
+     ground truth, and the pools they trained on centred (every scene's
+     median xy within 1e-3 m of 0) for arkit_centered_ft and not for
+     arkit_ft; ms/step, eval seconds and peak memory printed, one line a
+     run. The kernels line carries each run's launches.
 The second-last line is the kernels JSON, the last the device JSON. Details
 go to chiprun_out/chip_smoke.json, chiprun_out/chip_smoke_profile.txt,
 chiprun_out/chip_smoke_train_profile.txt,
@@ -3336,16 +3342,21 @@ EXPERIMENT_KNOBS = {
                     "CONV_SEEDS": "0", "CONV_BF16": ""},
     "fitted_mixture": {"FM_STEPS": "5", "FM_PRETRAIN": "0"},
     "semi_sup_ab": {"AB_STEPS": "6", "AB_EVAL_EVERY": "6",
-                    "AB_PRETRAIN": "3", "AB_SEEDS": "0",
-                    "AB_ARMS": "gamma_ft"},
+                    "AB_PRETRAIN": "3", "AB_SEEDS": "0"},
 }
+# Protocol B's arms, each run on its own (AB_ARMS=<arm>)
+AB_ARMS = ("sup_ft", "ema_ft", "gamma_ft", "gamma_fixed_ft", "arkit_ft",
+           "arkit_centered_ft")
 # FPS and ball-query-group launches each driver's run makes: a forward
 # launches 6 and 5; convergence 10 supervised steps at B=4 and evals after
 # steps 1 and 10; fitted_mixture 5 semi steps (student + teacher) a
-# criterion; semi_sup_ab 3 supervised and 3 semi steps, the student's eval
-# after step 1, the student's and the teacher's after step 6
+# criterion; a semi_sup_ab arm 3 supervised and 3 semi steps, the
+# student's eval after step 1, the student's and the teacher's after step
+# 6; `sup_ft` 6 supervised steps and the student's two evals
 EXPERIMENT_FORWARDS = {"convergence": 10 + 2, "fitted_mixture": 2 * 5 * 2,
-                       "semi_sup_ab": 3 + 3 * 2 + 1 + 2}
+                       **{f"semi_sup_ab:{arm}": 3 + 3 * 2 + 1 + 2
+                          for arm in AB_ARMS},
+                       "semi_sup_ab:sup_ft": 6 + 1 + 1}
 
 
 @contextlib.contextmanager
@@ -3362,29 +3373,54 @@ def environ(values):
                 os.environ[k] = v
 
 
+@contextlib.contextmanager
+def recorded_arm_pools(semi_sup_ab, seen):
+    """semi_sup_ab.arm_pools, which run_arm calls for an arm's pools, also
+    recording them in `seen` by base arm."""
+    arm_pools = semi_sup_ab.arm_pools
+
+    def recording(base, labeled, weak, val):
+        seen[base] = arm_pools(base, labeled, weak, val)
+        return seen[base]
+    semi_sup_ab.arm_pools = recording
+    try:
+        yield
+    finally:
+        semi_sup_ab.arm_pools = arm_pools
+
+
 def experiments_phase(dev, card):
-    """Phase 21: the three experiment drivers through their main(), at
-    full width, for a few steps each; their outputs in a temporary
+    """Phase 21: the experiment drivers through their main(), at full
+    width, for a few steps each: convergence, fitted_mixture, and every
+    Protocol-B arm of semi_sup_ab on its own; their outputs in a temporary
     directory, removed after."""
     import tempfile
     import torch
     from omni_pq_torch import ops
-    from omni_pq_torch.experiments import (convergence, fitted_mixture,
-                                           semi_sup_ab)
+    from omni_pq_torch.experiments import (common, convergence,
+                                           fitted_mixture, semi_sup_ab)
     report = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_exp_") as tmp:
+    seen_pools = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_exp_") as tmp, \
+            recorded_arm_pools(semi_sup_ab, seen_pools):
         argv = {
             "convergence": ["--json", f"{tmp}/conv.json",
                             "--doc", f"{tmp}/CONV.md"],
             "fitted_mixture": ["--json", f"{tmp}/fm.json",
-                               "--doc", f"{tmp}/FM.md"],
-            "semi_sup_ab": ["--doc", f"{tmp}/SEMI.md"]}
+                               "--doc", f"{tmp}/FM.md"]}
         knobs = dict(EXPERIMENT_KNOBS)
-        knobs["semi_sup_ab"] = dict(knobs["semi_sup_ab"],
-                                    AB_OUT=f"{tmp}/ab.json")
-        for name, driver in (("convergence", convergence),
-                             ("fitted_mixture", fitted_mixture),
-                             ("semi_sup_ab", semi_sup_ab)):
+        paths = {"convergence": f"{tmp}/conv.json",
+                 "fitted_mixture": f"{tmp}/fm.json"}
+        runs = [("convergence", convergence), ("fitted_mixture",
+                                               fitted_mixture)]
+        for arm in AB_ARMS:
+            name = f"semi_sup_ab:{arm}"
+            paths[name] = f"{tmp}/ab_{arm}.json"
+            argv[name] = ["--doc", f"{tmp}/SEMI_{arm}.md"]
+            knobs[name] = dict(EXPERIMENT_KNOBS["semi_sup_ab"], AB_ARMS=arm,
+                               AB_OUT=paths[name])
+            runs.append((name, semi_sup_ab))
+        for name, driver in runs:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             ops.fps.launches = 0
@@ -3401,10 +3437,7 @@ def experiments_phase(dev, card):
             check(launches == {"fps": 6 * n, "ball_query_group": 5 * n},
                   f"[experiments] {name}: launches {launches}, expected "
                   f"{6 * n} fps and {5 * n} ball_query_group ({n} forwards)")
-            path = {"convergence": f"{tmp}/conv.json",
-                    "fitted_mixture": f"{tmp}/fm.json",
-                    "semi_sup_ab": f"{tmp}/ab.json"}[name]
-            with open(path) as f:
+            with open(paths[name]) as f:
                 out = json.load(f)
             report[name] = {"launches": launches, "wall_s": wall,
                             "peak_gib": torch.cuda.max_memory_allocated(dev)
@@ -3435,27 +3468,57 @@ def experiments_phase(dev, card):
                              for c in ("fixed", "fitted")},
                     eval_s=None)
             else:
-                (run,) = out["runs"]
-                last = run["curve"][-1]
-                check(run["backfilled"] and "f1_ema" in last,
-                      "[experiments] semi_sup_ab: the teacher was not "
-                      "backfilled or not evaluated")
-                check("gamma_engaged_frac" in last,
-                      "[experiments] semi_sup_ab: gamma_engaged_frac not "
-                      "recorded")
-                check(all(np.isfinite(c["loss"]) for c in run["curve"]),
-                      "[experiments] semi_sup_ab: a loss is not finite")
-                report[name].update(
-                    ms_per_step={"pretrain": run["curve"][0]["ms_per_step"],
-                                 "semi": last["ms_per_step"]},
-                    eval_s=last["eval_s"], f1=last["f1"],
-                    f1_ema=last["f1_ema"],
-                    engaged=last["gamma_engaged_frac"])
+                report[name].update(ab_arm_reading(
+                    name.split(":")[1], out, seen_pools, semi_sup_ab,
+                    common))
             r = report[name]
             print(f"[experiments] {name}: {n} forwards, launches {launches}, "
                   f"ms/step {r['ms_per_step']}, eval {r['eval_s']} s, wall "
                   f"{wall:.1f} s, peak {r['peak_gib']:.2f} GiB [{card}]")
     return report
+
+
+def ab_arm_reading(arm, out, seen_pools, semi_sup_ab, common) -> dict:
+    """Phase 21's checks of one Protocol-B arm's 3 + 3 steps (its results
+    file `out`, the pools it trained on) and what it prints."""
+    base, _ = semi_sup_ab.split_arm(arm)
+    flags = semi_sup_ab.ARM_FLAGS[base]
+    where = f"[experiments] semi_sup_ab {arm}"
+    (run,) = out["runs"]
+    last = run["curve"][-1]
+    check([c["step"] for c in run["curve"]] == [1, 6],
+          f"{where}: evals after steps {[c['step'] for c in run['curve']]}"
+          ", expected [1, 6]")
+    check(run["backfilled"], f"{where}: the teacher was not backfilled")
+    check(("f1_ema" in last) == flags.ema,
+          f"{where}: the teacher's eval {'missing' if flags.ema else 'run'}")
+    check(all(np.isfinite(c["loss"]) for c in run["curve"]),
+          f"{where}: a loss is not finite")
+    check(("gamma_engaged_frac" in last) == flags.gamma_mixture,
+          f"{where}: gamma_engaged_frac recorded: "
+          f"{'gamma_engaged_frac' in last}")
+    reading = {"ms_per_step": last["ms_per_step"], "eval_s": last["eval_s"],
+               "f1": last["f1"], "f1_ema": last.get("f1_ema"),
+               "engaged": last.get("gamma_engaged_frac")}
+    if flags.arkit:
+        check(last.get("arkit_collisions", 0) > 0,
+              f"{where}: arkit_collisions {last.get('arkit_collisions')}, "
+              "expected > 0")
+        labeled, weak, val = seen_pools[base]
+        # each scene's median xy: ~0 once centred
+        med = max(float(np.abs(np.median(p["point_clouds"][..., :2],
+                                         axis=1)).max())
+                  for p in (labeled, weak, val))
+        centred = base == "arkit_centered"
+        check(med < 1e-3 if centred else med > 0.5,
+              f"{where}: the largest |median xy| of a scene is {med:.4g} m,"
+              f" expected {'< 1e-3 (centred)' if centred else '> 0.5'}")
+        check(all(not weak[k].any() for k in common.QUAD_GT_KEYS),
+              f"{where}: the weak pool keeps quad ground truth")
+        reading.update(collisions=last["arkit_collisions"],
+                       arkit_pc_loss=last["arkit_pc_loss"],
+                       max_median_xy=med)
+    return reading
 
 
 def main() -> int:

@@ -70,6 +70,8 @@ N_LABELED, N_WEAK, N_VAL = 4, 16, 8
 BS = 3  # labeled batch (train.sh batch_size); the weak batch equals it
 CONSISTENCY = 0.05
 LOSS_EVERY = 50
+# a step's records, where it has them, printed on its eval line too
+LOG_RECORDS = ("gamma_engaged_frac", "arkit_pc_loss", "arkit_collisions")
 SCRATCH_OUT = "docs/semi_sup_ab_torch.json"
 FT_OUT = "docs/semi_sup_ab_ft_torch.json"
 
@@ -221,9 +223,13 @@ def run_arm(arm: str, seed: int, labeled_np: Dict, weak_np: Dict,
         curve.append(rec)
         peak = ("" if rec["peak_gib"] is None
                 else f", peak {rec['peak_gib']:.2f} GiB")
+        # the step's records also on the line, which outlives a run that a
+        # time limit stops before its JSON is written
+        records = "".join(f" {k} {rec[k]:.6g}" for k in LOG_RECORDS
+                          if k in rec)
         print(f"  [{arm} s{seed}] step {i + 1}: heldout F1 {rec['f1']:.3f}"
               + (f" ema {rec['f1_ema']:.3f}" if in_semi else "")
-              + f" loss {loss:.3f} ({time.time() - t0:.0f}s, eval "
+              + f" loss {loss:.3f}{records} ({time.time() - t0:.0f}s, eval "
               f"{rec['eval_s']:.1f}s"
               + ("" if ms is None else f", {ms:.1f} ms/step") + peak + ")",
               flush=True)

@@ -14,7 +14,10 @@ its helper scripts against the JAX package's, on the CPU.
   writing only where it is told (never under docs/); the convergence
   driver's --redoc merge; the A/B's resume.
 - `semi_sup_report` against scripts/semi_sup_report.py on the same result
-  files: the same medians (`_tables`) and the same "Reading" lines.
+  files: the same medians (`_tables`) and the same "Reading" lines; its
+  own sections (each arm's range over seeds beside JAX's, each run's last
+  student and teacher beside JAX's) and a run that a time limit stopped,
+  rebuilt from the driver's printed output and marked in the tables.
 - `infer.init_weights`: flax's lecun_normal (a normal truncated at two
   standard deviations, variance 1/fan_in) on every projection of the full
   model: no weight beyond the truncation, each large layer's variance within
@@ -332,6 +335,63 @@ def test_semi_sup_ab_driver_runs_and_resumes(tmp_path, monkeypatch, capsys,
         semi_sup_ab.Settings.from_env()
 
 
+def test_stopped_run_is_rebuilt_from_its_output(tmp_path, monkeypatch,
+                                                capsys, docs_untouched):
+    """A run's printed output, cut after an eval as a time limit would cut
+    it, rebuilds the run to that eval (the JSON's values to the printed
+    decimals), and the report marks it as stopped there."""
+    env = {"AB_STEPS": "4", "AB_EVAL_EVERY": "2", "AB_PRETRAIN": "2",
+           "AB_SEEDS": "0", "AB_ARMS": "arkit_centered_ft",
+           "AB_OUT": str(tmp_path / "ab.json")}
+    _run(semi_sup_ab, ["--doc", str(tmp_path / "SEMI.md")], monkeypatch, env)
+    (whole,) = json.load(open(tmp_path / "ab.json"))["runs"]
+    lines = capsys.readouterr().out.splitlines()
+    for cut, steps in ((len(lines), [1, 2, 4]),
+                       (next(i for i, x in enumerate(lines)
+                             if "] step 2: heldout" in x) + 1, [1, 2])):
+        log = tmp_path / "ab.log"
+        log.write_text("\n".join(lines[:cut]) + "\n")
+        doc = semi_sup_report.run_from_log(str(log))
+        assert (doc["steps"], doc["pretrain"], doc["device"]) == (4, 2, "cpu")
+        (run,) = doc["runs"]
+        assert (run["arm"], run["seed"], run["stopped_at"]) == (
+            "arkit_centered_ft", 0, steps[-1])
+        assert run["backfilled"] == (steps[-1] == 4)
+        assert [c["step"] for c in run["curve"]] == steps
+        for got, want in zip(run["curve"], whole["curve"]):
+            assert set(got) == set(want)
+            # printed to 3 decimals (ms/step to 1)
+            for k, tol in (("f1", 5e-4), ("f1_ema", 5e-4), ("loss", 5e-4),
+                           ("ms_per_step", 0.05)):
+                if want.get(k) is not None:
+                    assert got[k] == pytest.approx(want[k], abs=tol * 1.01)
+            for k in semi_sup_ab.LOG_RECORDS:
+                if k in want:
+                    assert got[k] == pytest.approx(want[k], rel=1e-5)
+    assert "arkit_collisions" in run["curve"][-1] or steps[-1] == 2
+    lines = semi_sup_report.render(str(tmp_path / "none.json"), [str(log)],
+                                   str(tmp_path / "PORT.md"))
+    assert any(x.startswith("| ") and "†" in x for x in lines)
+    assert any("stopped at step 2" in x for x in lines)
+    with pytest.raises(ValueError, match="not a semi_sup_ab run"):
+        (tmp_path / "other.log").write_text("nothing\n")
+        semi_sup_report.run_from_log(str(tmp_path / "other.log"))
+    # --save into one of its inputs: each run once, and the saved file
+    # renders the same report
+    merged = str(tmp_path / "ab.json")
+    md = [str(tmp_path / f"{n}.md") for n in ("A", "B")]
+    for doc, inputs in ((md[0], [merged, str(log)]), (md[1], [merged])):
+        assert semi_sup_report.main(
+            ["--scratch", str(tmp_path / "none.json"), "--ft", *inputs,
+             "--doc", doc, "--save", str(tmp_path / "s.json"), merged]) == 0
+    runs = json.load(open(merged))["runs"]
+    assert [(r["arm"], "stopped_at" in r) for r in runs] == [
+        ("arkit_centered_ft", False), ("arkit_centered_ft", True)]
+    assert (open(md[0]).read().split("-->")[1]
+            == open(md[1]).read().split("-->")[1])
+    assert not os.path.exists(tmp_path / "s.json")  # no scratch runs
+
+
 def test_experiments_import_no_jax():
     code = ("import sys; import omni_pq_torch.experiments.convergence, "
             "omni_pq_torch.experiments.fitted_mixture, "
@@ -398,6 +458,42 @@ def test_report_matches_jax_report(tmp_path, monkeypatch, docs_untouched):
         assert semi_sup_report._tables(runs, seeds, []) == jrep._tables(
             runs, seeds, [])
     assert "## Beside the JAX package" in port_lines
+
+
+def test_report_ranges_and_student_teacher(tmp_path, docs_untouched):
+    """The port-only sections: each arm's median and range over seeds
+    beside JAX's, and each run's final student / teacher beside JAX's run
+    of the same arm and seed."""
+    rng = np.random.default_rng(1)
+    setup = {"labeled": 4, "weak": 16, "val": 8, "room": {}}
+    port = {"steps": 1000, "pretrain": 500, "setup": setup,
+            "runs": _fake_runs(rng, ["sup_ft", "gamma_ft"], [0, 2],
+                               [1, 500, 1000])}
+    path = str(tmp_path / "ft.json")
+    json.dump(port, open(path, "w"))
+    lines = semi_sup_report.render(str(tmp_path / "none.json"), path,
+                                   str(tmp_path / "PORT.md"))
+    with open(semi_sup_report.JAX_SRC["ft"]) as f:
+        jruns = json.load(f)["runs"]
+    by = {(r["arm"], r["seed"]): r for r in port["runs"]}
+    jby = {(r["arm"], r["seed"]): r for r in jruns}
+    for arm in ("sup_ft", "gamma_ft"):
+        vals = sorted(r["best_f1"] for r in port["runs"] if r["arm"] == arm)
+        jvals = sorted(r["best_f1"] for r in jruns if r["arm"] == arm)
+        assert (f"| `{arm}` | {np.median(vals):.3f} (2) | {vals[0]:.3f}-"
+                f"{vals[1]:.3f} | {np.median(jvals):.3f} (3) | "
+                f"{jvals[0]:.3f}-{jvals[-1]:.3f} |") in lines
+    i = lines.index("## Student and teacher at the last step")
+    rows = [x for x in lines[i:] if x.startswith("| `")]
+    assert len(rows) == 2  # gamma_ft's two seeds; sup_ft has no teacher
+    for row, s in zip(rows, (0, 2)):
+        r, j = by[("gamma_ft", s)], jby[("gamma_ft", s)]
+        assert row == (
+            f"| `gamma_ft` | {s} | {r['final_f1']:.3f} / "
+            f"{r['final_f1_ema']:.3f} "
+            f"({r['final_f1'] - r['final_f1_ema']:+.3f}) | "
+            f"{j['final_f1']:.3f} / {j['final_f1_ema']:.3f} "
+            f"({j['final_f1'] - j['final_f1_ema']:+.3f}) |")
 
 
 # -- the init: flax's lecun_normal --------------------------------------------
