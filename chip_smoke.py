@@ -218,6 +218,19 @@ when every phase passed:
      median xy within 1e-3 m of 0) for arkit_centered_ft and not for
      arkit_ft; ms/step, eval seconds and peak memory printed, one line a
      run. The kernels line carries each run's launches.
+ 22. the student-fall diagnosis script (scripts/student_fall_torch.py) at
+     full ModelConfig() width, in this process, its saved state in a
+     temporary directory removed after: a gamma_ft trunk of 3 supervised
+     steps (the student's F1 after step 1) whose whole state is saved at
+     step 3, then branches B1 (gamma loss off) and B2 (TF32 products) from
+     it, 3 semi steps each and one eval after step 6 (the student with its
+     running and its re-estimated BatchNorm statistics, K = 20 train-mode
+     forwards, and the teacher). The launch counts are set to 0 before
+     each part and read after: 6 FPS and 5 ball-query-group launches a
+     forward (4 forwards the trunk, 29 a branch). The saved state reloads
+     bitwise (student and teacher parameters and buffers, AdamW moments
+     and counts, the step, the generator); every record key is present
+     and finite; B2 ran with TF32 on and the process has it off again.
 The second-last line is the kernels JSON, the last the device JSON. Details
 go to chiprun_out/chip_smoke.json, chiprun_out/chip_smoke_profile.txt,
 chiprun_out/chip_smoke_train_profile.txt,
@@ -3521,6 +3534,129 @@ def ab_arm_reading(arm, out, seen_pools, semi_sup_ab, common) -> dict:
     return reading
 
 
+# -- phase 22: the student-fall diagnosis script at full width ----------------
+
+# gamma_ft's trunk to step 3 (its supervised pretrain), then 3 semi steps a
+# branch and their one eval after step 6
+FALL_ARGS = ["--arm", "gamma_ft", "--seed", "0", "--steps", "6",
+             "--pretrain", "3", "--branch_at", "3", "--eval_every", "6"]
+FALL_BRANCHES = ("B1", "B2")
+
+
+def fall_forwards(k: int) -> dict:
+    """Forwards of each part: the trunk's 3 supervised steps and the
+    student's eval after step 1; a branch's 3 semi steps (student and
+    teacher) and, at its eval, the student, the k re-estimation forwards,
+    the re-estimated student and the teacher."""
+    return {"trunk": 3 + 1, **{b: 3 * 2 + 1 + k + 1 + 1
+                              for b in FALL_BRANCHES}}
+
+
+def same_state(a, b) -> bool:
+    """Two student_fall runs' states bitwise equal: both models'
+    parameters and buffers, the AdamW moments and counts, the TrainState's
+    step, the generator."""
+    sa, sb = a.state, b.state
+    for ma, mb in ((sa.model, sb.model), (sa.ema_model, sb.ema_model)):
+        da, db = ma.state_dict(), mb.state_dict()
+        if da.keys() != db.keys() or not all(
+                torch_equal(da[k], db[k]) for k in da):
+            return False
+    oa, ob = sa.optimizer, sb.optimizer
+    pa, pb = list(sa.model.parameters()), list(sb.model.parameters())
+    moments = all(oa.state[x].keys() == ob.state[y].keys() and all(
+        torch_equal(oa.state[x][k], ob.state[y][k]) for k in oa.state[x])
+        for x, y in zip(pa, pb))
+    return (moments and (oa.count, oa.mini_step, sa.step)
+            == (ob.count, ob.mini_step, sb.step)
+            and torch_equal(a.gen.get_state(), b.gen.get_state()))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    return x.dtype == y.dtype and torch.equal(x, y.to(x.device))
+
+
+def student_fall_phase(dev, card):
+    """Phase 22: scripts/student_fall_torch.py's trunk and two branches at
+    full width, in this process (the launch counters are its)."""
+    import importlib.util
+    import tempfile
+    import torch
+    from omni_pq_torch import ops
+    spec = importlib.util.spec_from_file_location(
+        "student_fall_torch", os.path.join(ROOT, "scripts",
+                                           "student_fall_torch.py"))
+    sf = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sf)
+    forwards = fall_forwards(sf.REESTIMATE_K)
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fall_") as tmp:
+        state = os.path.join(tmp, "state.pth")
+        for name in ("trunk",) + FALL_BRANCHES:
+            mode = "trunk" if name == "trunk" else "branch"
+            args = sf.parse_args(
+                [mode, *FALL_ARGS, "--device", "cuda", "--state", state,
+                 "--json", os.path.join(tmp, f"{name}.json")]
+                + ([] if name == "trunk" else ["--name", name]))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.fps.launches = 0
+            ops.ball_query_group.launches = 0
+            t0 = time.time()
+            run, out = (sf.trunk if name == "trunk" else sf.branch)(args)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {"fps": ops.fps.launches,
+                        "ball_query_group": ops.ball_query_group.launches}
+            n = forwards[name]
+            where = f"[student_fall] {name}"
+            check(launches == {"fps": 6 * n, "ball_query_group": 5 * n},
+                  f"{where}: launches {launches}, expected {6 * n} fps and "
+                  f"{5 * n} ball_query_group ({n} forwards)")
+            check(out["stopped_at"] is None, f"{where}: stopped")
+            last = out["curve"][-1]
+            check(all(np.isfinite(v) for k, v in last.items()
+                      if isinstance(v, float)), f"{where}: a record is not "
+                  f"finite: {last}")
+            if name == "trunk":
+                check([c["step"] for c in out["curve"]] == [1],
+                      f"{where}: evals after {[c['step'] for c in out['curve']]}")
+                fresh = sf.setup(args, "trunk")
+                check(sf.load_state(state, fresh) == 3,
+                      f"{where}: the saved state's next step is not 3")
+                check(same_state(run, fresh), f"{where}: the saved state "
+                      "does not reload bitwise")
+                size = os.path.getsize(state) / 2**20
+                del fresh
+            else:
+                missing = set(sf.SEMI_RECORD_KEYS) - set(last)
+                check(last["step"] == 6 and not missing,
+                      f"{where}: the eval after step {last['step']} lacks "
+                      f"{sorted(missing)}")
+                check(out["tf32"]["matmul"] == (name == "B2"),
+                      f"{where}: ran with TF32 {out['tf32']}")
+                check(not torch.backends.cuda.matmul.allow_tf32
+                      and not torch.backends.cudnn.allow_tf32,
+                      f"{where}: TF32 left on after the branch")
+                check(out["backfilled_at"] == 3,
+                      f"{where}: the teacher was not backfilled at step 3")
+            report[name] = {"launches": launches, "wall_s": wall,
+                            "peak_gib": torch.cuda.max_memory_allocated(dev)
+                            / 2**30, "last": last}
+            print(f"{where}: {n} forwards, launches {launches}, F1 "
+                  f"{last['f1']:.3f}" + ("" if name == "trunk" else
+                                         f" re-est. {last['f1_reest']:.3f}"
+                                         f" teacher {last['f1_ema']:.3f}, "
+                                         f"eval {last['eval_s']:.1f} s")
+                  + f", wall {wall:.1f} s, peak "
+                  f"{report[name]['peak_gib']:.2f} GiB [{card}]")
+            del run
+        report["state_mib"] = size
+    print(f"[student_fall] the saved state ({size:.1f} MiB) reloads bitwise")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3865,6 +4001,10 @@ def main() -> int:
     # -- 21. the experiment drivers: convergence, fitted vs fixed gamma
     # criterion, the Protocol-B A/B, a few steps each at full width
     report["experiments"] = experiments_phase(dev, card)
+
+    # -- 22. the student-fall diagnosis script: a trunk, its saved state
+    # reloaded, two branches from it, a few steps each at full width
+    report["student_fall"] = student_fall_phase(dev, card)
     report["kernel_rows"] = rows
     # a time below its bound means a miscounted bound or a broken timer
     for kname, krows in rows.items():

@@ -241,6 +241,38 @@ def test_gamma_mixture_em_and_fitted_keep_mask_match_jax():
     assert abs(float(got[1][0, 0]) - 20.0) > 1.0
 
 
+def _converged_sample(seed, near_frac, rate, n=10000):
+    """Distances a converged model's quad gives the criterion: a near
+    component of `near_frac` of the n points at Gamma(2, rate) (a quad on
+    its wall: rates 300-2000), the rest Gamma(3, 1); near_frac None: a
+    room's points spread uniformly over 0-3."""
+    rng = np.random.default_rng(seed)
+    if near_frac is None:
+        return rng.uniform(0.0, 3.0, n).astype(np.float32)
+    k = int(round(n * near_frac))
+    return np.concatenate([rng.gamma(2.0, 1 / rate, k),
+                           rng.gamma(3.0, 1.0, n - k)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("near_frac,rate", [
+    (0.5, 300.0), (0.8, 600.0), (0.95, 1000.0), (1.0, 2000.0),
+    (None, None)], ids=["near50_r300", "near80_r600", "near95_r1000",
+                        "near100_r2000", "uniform_room"])
+def test_gamma_mixture_em_and_fitted_keep_mask_match_jax_converged(
+        near_frac, rate):
+    x = _converged_sample(28, near_frac, rate)
+    got = gamma.gamma_mixture_em(_t(x[None]), weight=0.1)
+    want = jgamma.gamma_mixture_em(x, 2.0, 20.0, 3.0, 1.0, 0.1, 25)
+    for name, g, w in zip(("a1", "b1", "a2", "b2", "w"), got, want):
+        np.testing.assert_allclose(_np(g)[0, 0], w, rtol=1e-4, err_msg=name)
+    keep = _np(gamma.mixture_keep_mask(_t(x), use_fitted=True))
+    np.testing.assert_array_equal(
+        keep, jgamma.mixture_keep_mask(x, use_fitted=True))
+    if near_frac is not None and near_frac < 1.0:
+        # the fit finds the near component: it keeps about its share
+        assert abs(keep.mean() - near_frac) < 0.05
+
+
 @pytest.mark.parametrize("q", [0.0, 0.5, 0.85, 1.0])
 def test_masked_quantile_matches_jax(q):
     rng = np.random.default_rng(27)

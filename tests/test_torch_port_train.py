@@ -288,6 +288,48 @@ def test_ema_update_matches_jax():
                                atol=1e-6)
 
 
+def test_running_stats_over_many_train_forwards_match_flax():
+    """The running statistics after 20 train-mode forwards of the TINY
+    model (dropout 0) on 20 different batches, against flax's
+    `mutable=["batch_stats"]` chain on the same weights and batches: what a
+    student's eval reads after a stretch of steps (each update a convex
+    combination, so the gap stays that of one forward, held to the whole
+    step's 1e-3)."""
+    batches = [make_batch(np.random.default_rng(40 + i), 2,
+                          TRAIN_CFG.num_points)["point_clouds"]
+               for i in range(20)]
+    jmodel = JaxPQTransformer(TRAIN_CFG)
+    variables = randomised_variables(jmodel, batches[0], seed=9)
+
+    @jax.jit
+    def forward(bs, pc):
+        _, mut = jmodel.apply({"params": variables["params"],
+                               "batch_stats": bs}, pc, train=True,
+                              rngs={"dropout": jax.random.PRNGKey(0)},
+                              mutable=["batch_stats"])
+        return mut["batch_stats"]
+
+    bs = variables["batch_stats"]
+    model = load_model(flax_to_state_dict(variables), port_config(TRAIN_CFG),
+                       "cpu")
+    model.train()
+    with torch.no_grad():
+        for pc in batches:
+            bs = forward(bs, jnp.asarray(pc))
+            model(torch.from_numpy(pc))
+    want = flax_to_state_dict({"params": variables["params"],
+                               "batch_stats": jax.tree.map(np.asarray, bs)})
+    first = flax_to_state_dict(variables)
+    moved = 0
+    for name, buf in model.named_buffers():
+        if name.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(_np(buf), want[name].numpy(),
+                                       rtol=1e-3, atol=1e-3, err_msg=name)
+            moved += not np.allclose(want[name].numpy(),
+                                     first[name].numpy(), atol=1e-3)
+    assert moved > 20  # the 20 updates moved the statistics
+
+
 # -- one whole supervised step ------------------------------------------------
 
 @pytest.fixture(scope="module")
