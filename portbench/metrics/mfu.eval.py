@@ -1,0 +1,6 @@
+"""`mfu.eval`: see `portbench/readers.py` `mfu`."""
+from portbench import readers
+
+
+def read(ctx):
+    return readers.mfu(ctx, "eval")

@@ -1,0 +1,188 @@
+"""The benchmark's spec and harness on the CPU: names and units, the files
+each cell needs, an addition that edits no existing file, the import
+rules, and a run without a card."""
+import ast
+import hashlib
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import textwrap
+import time
+
+import pb_small
+from portbench import harness
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+BENCH = harness.BENCH
+ROOT = harness.ROOT
+
+
+def spec():
+    return harness.load_spec()
+
+
+def test_names_units_and_keys():
+    s = spec()
+    assert set(s) == {"command", "paths", "run_seconds", "configs",
+                      "workloads", "end_to_end", "per_layer"}
+    names = [c["name"] for c in s["configs"]] + [
+        w["name"] for w in s["workloads"]] + [
+        m["name"] for m in s["end_to_end"] + s["per_layer"]]
+    assert len(names) == len(set(names))
+    for n in names + [w["traffic"] for w in s["workloads"]]:
+        assert NAME.match(n), n
+    for m in s["end_to_end"] + s["per_layer"]:
+        assert UNIT.match(m["unit"]), m
+        assert m["better"] in ("lower", "higher")
+        assert set(m) <= {"name", "unit", "better", "bound", "source",
+                          "layer", "moves", "workloads"}
+    for m in s["end_to_end"]:
+        assert m["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= m["bound"] <= 0.25
+    e2e = {m["name"] for m in s["end_to_end"]}
+    for m in s["per_layer"]:
+        assert m["moves"] in e2e
+    for w in s["workloads"]:
+        assert len(w["why"]) <= 200 and "\n" not in w["why"]
+        assert w["chips"] == 1
+
+
+def test_every_cell_finds_its_files():
+    s = spec()
+    for w in s["workloads"]:
+        cell = harness.find_cell(s, w["name"])
+        names = {m["name"] for m in cell.end_to_end}
+        assert "setup_s" in names and len(names) >= 2
+        assert cell.per_layer
+        for m in cell.end_to_end + cell.per_layer:
+            assert callable(harness.load_reader(m["name"]))
+        assert cell.limits
+    for c in s["configs"]:
+        assert (ROOT / c["file"]).is_file()
+        assert c["file"].startswith(s["paths"][0] + "/")
+
+
+def test_an_addition_edits_no_existing_file(tmp_path):
+    """A configuration, a traffic mix, a metric and a cell added as new
+    files in a copy of the benchmark: the harness finds them by name and
+    runs the new cell on the CPU, and no file that was there changed."""
+    shutil.copytree(BENCH, tmp_path / BENCH.name,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    before = {p: hashlib.sha256(p.read_bytes()).hexdigest()
+              for p in (tmp_path / BENCH.name).rglob("*") if p.is_file()}
+    new = tmp_path / BENCH.name
+    cfg = json.loads((new / "configs" / "pqt_scannet_bf16.json").read_text())
+    cfg.update(pb_small.SMALL)
+    (new / "configs" / "tiny_added.json").write_text(json.dumps(cfg))
+    (new / "traffic" / "eval_b2.json").write_text(json.dumps(
+        {"kind": "eval", "batch": 2, "num_points": 1024, "pool": 2}))
+    (new / "limits" / "eval_b2.tiny_added.json").write_text(json.dumps(
+        {"index_mismatch": 0, "stage_a_gap": 1e-3, "stage_b_gap": 1e-3}))
+    (new / "metrics" / "eval_calls.py").write_text(textwrap.dedent('''
+        def read(ctx):
+            return float(ctx.window.calls)
+        '''))
+    s = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    s["configs"].append({"name": "tiny_added", "source": "test",
+                         "file": "portbench/configs/tiny_added.json",
+                         "reduced": [], "why": "test"})
+    s["workloads"].append({"name": "eval_b2.tiny_added",
+                           "config": "tiny_added", "traffic": "eval_b2",
+                           "chips": 1, "why": "test"})
+    s["per_layer"].append({"name": "eval_calls", "unit": "count",
+                           "better": "higher", "source": "host_clock",
+                           "layer": "entry", "moves": "eval_scenes_per_s",
+                           "workloads": ["eval_b2.tiny_added"]})
+    s["end_to_end"][0]["workloads"].append("eval_b2.tiny_added")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(s))
+
+    cell = harness.find_cell(harness.load_spec(tmp_path),
+                             "eval_b2.tiny_added", tmp_path)
+    assert cell.cfg["hidden_dim"] == 32 and cell.traffic["batch"] == 2
+    assert [m["name"] for m in cell.per_layer][-1] == "eval_calls"
+    r = harness.run_cell("eval_b2.tiny_added", pb_small.SEED, 0.3, False,
+                         time.perf_counter(), device="cpu", root=tmp_path)
+    assert r["correct"] and r["attempted"] >= 1
+    assert set(r["metrics"]) == {"eval_scenes_per_s", "setup_s"}
+    ctx = harness.Context(cell=cell, window=harness.Window(calls=7),
+                          setup_s=1.0)
+    assert harness.load_reader("eval_calls", tmp_path)(ctx) == 7.0
+    after = {p: hashlib.sha256(p.read_bytes()).hexdigest() for p in before}
+    assert after == before
+
+
+FORBIDDEN_CHECK = textwrap.dedent('''
+    import sys
+    import time
+    sys.path.insert(0, {root!r})
+    sys.path.insert(0, {tests!r})
+    import torch
+    torch.set_num_threads(2)
+    import pb_small
+    from portbench import harness
+    for w in {cells!r}:
+        r = harness.run_cell(w, 7, 0.2, False, time.perf_counter(),
+                             device="cpu",
+                             cfg_override=pb_small.SMALL)
+        assert r["correct"], r
+    print(sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                        "omni_pq_tpu")))
+    ''')
+
+
+def test_a_run_imports_no_jax():
+    cells = [w["name"] for w in spec()["workloads"]]
+    out = subprocess.run(
+        [sys.executable, "-c", FORBIDDEN_CHECK.format(
+            root=str(ROOT), tests=str(BENCH / "tests"), cells=cells)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def imported_modules(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_reference_imports_nothing_of_the_program():
+    for path in (BENCH / "reference").glob("*.py"):
+        tops = {m.split(".")[0] for m in imported_modules(path)}
+        assert not tops & {"omni_pq_torch", "omni_pq_tpu", "jax", "flax"}, (
+            path, tops)
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, %r); import portbench.check, "
+         "portbench.reference.train; print(sorted({m.split('.')[0] for m in "
+         "sys.modules} & {'omni_pq_torch', 'omni_pq_tpu', 'jax'}))"
+         % str(ROOT)], capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
+
+
+def test_nothing_reads_the_tpu_benchmarks():
+    for path in BENCH.rglob("*.py"):
+        if path.parent.name == "tests":
+            continue
+        text = path.read_text()
+        assert "benchmarks/" not in text and "import bench" not in text, path
+
+
+def test_run_without_a_card_fails_and_prints_no_result():
+    out = subprocess.run(
+        [sys.executable, "portbench/run.py", "--workload", "eval_b16.bf16",
+         "--seed", "1", "--seconds", "1", "--trace", "0"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""
