@@ -14,7 +14,11 @@ stats under eval_student/ and eval_ema/) every --val_freq epochs; the
 best / ema_best / periodic / last checkpoints (`train/checkpoint.py`);
 resume from --checkpoint_path at the epoch after the file's; --profile N
 writes a torch.profiler trace of N steps (from the second) to
-<log_dir>/profile.
+<log_dir>/profile, with summary.json: the window's wall and device ms, and
+from the port's spans (`utils.trace`) the host ms a step in each span
+(`train.step` and its phases, the losses, the update, the model's stages,
+the kernels' launches, and `train.loader_wait`, the wait for each step's
+batches) and the allocations a step.
 
 One difference from the JAX loop: each evaluation pass draws the val
 clouds again from the val dataset's seed (`reseed()`), so every pass, and
@@ -210,13 +214,29 @@ def evaluate(args, state, val_loader, dataset_config, logger, use_ema=False,
     return f1
 
 
+def batches(train_loader, weak_iter):
+    """(labeled batch, weak batch or None) pairs, each fetch under the span
+    `train.loader_wait`."""
+    from ..utils.trace import span
+    labeled = iter(train_loader)
+    while True:
+        with span("train.loader_wait"):
+            batch = next(labeled, None)
+            if batch is None:
+                return
+            weak = next(weak_iter) if weak_iter is not None else None
+        yield batch, weak
+
+
 class StepProfiler:
     """--profile N: a torch.profiler trace of steps 2 .. N+1 (from the end
     of step 1, so the window holds the waits for their batches), written
     to <log_dir>/profile/trace.json, with summary.json: the window's wall
     ms (host clock, synchronised), the device's kernel ms and their
-    ratio. `after_step` returns the seconds it took itself, which the
-    loop keeps out of its step times."""
+    ratio, and from the spans the window recorded (`utils.trace`) the host
+    ms a step in each span name and the allocations a step (the counter
+    of `train.step`, on a card). `after_step` returns the seconds it took
+    itself, which the loop keeps out of its step times."""
 
     def __init__(self, steps: int, log_dir: str, device):
         self.steps = steps
@@ -235,10 +255,13 @@ class StepProfiler:
         t_in = time.perf_counter()
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+
+        from ..utils import trace
         if global_step == 1:
             activities = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
             self._sync()
+            trace.clear()
             self.prof = profile(activities=activities)
             self.prof.start()
             self.t0 = time.perf_counter()
@@ -255,13 +278,28 @@ class StepProfiler:
                                                        "trace.json"))
             summary = {"steps": self.steps, "wall_ms": wall_ms,
                        "device_ms": device_ms,
-                       "busy_share": device_ms / wall_ms}
+                       "busy_share": device_ms / wall_ms,
+                       **span_summary(trace.records(), self.steps)}
+            trace.clear()
             with open(os.path.join(self.dir, "summary.json"), "w") as f:
                 json.dump(summary, f, indent=1)
             logger.info(f"profiler trace ({self.steps} steps) written to "
                         f"{self.dir}: {summary}")
             self.prof = None
         return time.perf_counter() - t_in
+
+
+def span_summary(records, steps: int) -> dict:
+    """Host ms a step in each span name, and the allocations a step (None
+    off a card), from the spans of `steps` steps."""
+    ns = {}
+    for r in records:
+        ns[r.name] = ns.get(r.name, 0) + r.t1_ns - r.t0_ns
+    allocs = [r.counters["allocations"] for r in records
+              if r.name == "train.step" and "allocations" in r.counters]
+    return {"host_ms_per_step": {k: v / 1e6 / steps for k, v in
+                                 sorted(ns.items(), key=lambda kv: -kv[1])},
+            "allocations_per_step": sum(allocs) / steps if allocs else None}
 
 
 def main(argv=None):
@@ -382,8 +420,8 @@ def train(args, device):
                                 args.consistency_rampup)
         stat_acc, n_acc, data_s = {}, 0, 0.0
         window_t0 = t0 = time.perf_counter()
-        for batch_idx, batch in enumerate(train_loader):
-            weak = next(weak_iter) if weak_iter is not None else None
+        for batch_idx, (batch, weak) in enumerate(batches(train_loader,
+                                                          weak_iter)):
             data_s += time.perf_counter() - t0  # waiting for the loaders
             stats = train_step(
                 state, batch_to_tensors(batch, device),

@@ -22,6 +22,7 @@ from .evals import (QuadAPCalculator, parse_quad_groundtruths,
                     parse_quad_predictions)
 from .models import MultiHeadAttention, PQTransformer
 from .models.pointnet2 import Conv, acc_dtype, torch_dtype
+from .utils.trace import span
 
 # the eval decode settings of the JAX package's cli/train.py::evaluate
 EVAL_CONFIG = {"remove_empty_box": False, "use_3d_nms": True,
@@ -107,12 +108,14 @@ def eval_forward(model: PQTransformer, point_clouds) -> Dict[str, torch.Tensor]:
     """The eval-mode forward on (B, N, 3+C) clouds (a tensor or an array),
     on the model's device, at the model's compute dtype. The clouds are
     taken as float32, or float64 under float64 (`acc_dtype`: the JAX
-    package's float64 route takes float64 clouds)."""
-    device = next(model.parameters()).device
-    dtype = acc_dtype(torch_dtype(model.cfg.compute_dtype))
-    pc = torch.as_tensor(point_clouds, dtype=dtype, device=device)
-    with torch.inference_mode():
-        return model(pc)
+    package's float64 route takes float64 clouds). While a profiler runs,
+    it records the `utils.trace` span `eval.forward` around it."""
+    with span("eval.forward"):
+        device = next(model.parameters()).device
+        dtype = acc_dtype(torch_dtype(model.cfg.compute_dtype))
+        pc = torch.as_tensor(point_clouds, dtype=dtype, device=device)
+        with torch.inference_mode():
+            return model(pc)
 
 
 def evaluate_quad_f1(end_points: Mapping, labels: Mapping) -> Dict:

@@ -18,6 +18,13 @@ key has the dtype JAX gives it (the SA, FP and seed features and the
 cluster features in bfloat16 under bfloat16, everything else float32,
 indices int32; under float64 every floating key float64, given float64
 clouds).
+While a profiler runs, the forward records the `utils.trace` spans of its
+stages: `model.backbone`; `model.vote` (the quad queries' FPS over the
+seeds, voting, vote aggregation); `model.proposal` (the proposal heads);
+`model.decoder` (the query and key projections, the decoder layers and
+their heads), and in it each layer's `decoder.self_attention`,
+`decoder.cross_attention` and `decoder.ffn` and its heads'
+`decoder.object_head` and `decoder.quad_head`.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from torch import nn
 
 from .. import ops
 from ..config import ModelConfig
+from ..utils.trace import span
 from .backbone import Pointnet2Backbone
 from .heads import PredictHead, QuadPredictHead
 from .pointnet2 import Conv, SAModuleVotes, torch_dtype
@@ -90,45 +98,54 @@ class PQTransformer(nn.Module):
         """point_clouds (B, N, 3+C) -> end_points. `generator` (on the
         model's device) draws the decoder's dropout masks in train mode."""
         cfg = self.cfg
-        end_points = self.backbone(point_clouds)
+        with span("model.backbone"):
+            end_points = self.backbone(point_clouds)
         seed_xyz = end_points["fp2_xyz"]
         seed_features = end_points["fp2_features"]
 
-        # quad branch query init: plain FPS over seeds
-        quad_inds = ops.fps(seed_xyz, cfg.num_quad_proposal)
-        quad_xyz = ops.gather_points(seed_xyz, quad_inds)
-        quad_feat = ops.gather_points(seed_features, quad_inds)
-        end_points["aggregated_sample_xyz"] = quad_xyz
+        with span("model.vote"):
+            # quad branch query init: plain FPS over seeds
+            quad_inds = ops.fps(seed_xyz, cfg.num_quad_proposal)
+            quad_xyz = ops.gather_points(seed_xyz, quad_inds)
+            quad_feat = ops.gather_points(seed_features, quad_inds)
+            end_points["aggregated_sample_xyz"] = quad_xyz
 
-        # object branch query init: voting + L2-normalised features + SA
-        vote_xyz, vote_feat = self.vote(seed_xyz, seed_features)
-        vote_feat = vote_feat / (torch.linalg.vector_norm(
-            vote_feat, dim=-1, keepdim=True) + 1e-8)
-        end_points["vote_xyz"] = vote_xyz
-        end_points["vote_features"] = vote_feat
-        cluster_xyz, cluster_feat, _ = self.vote_aggregation(vote_xyz,
-                                                             vote_feat)
-        end_points["aggregated_vote_xyz"] = cluster_xyz
-        end_points["cluster_feature"] = cluster_feat
+            # object branch query init: voting + L2-normalised features + SA
+            vote_xyz, vote_feat = self.vote(seed_xyz, seed_features)
+            vote_feat = vote_feat / (torch.linalg.vector_norm(
+                vote_feat, dim=-1, keepdim=True) + 1e-8)
+            end_points["vote_xyz"] = vote_xyz
+            end_points["vote_features"] = vote_feat
+            cluster_xyz, cluster_feat, _ = self.vote_aggregation(vote_xyz,
+                                                                 vote_feat)
+            end_points["aggregated_vote_xyz"] = cluster_xyz
+            end_points["cluster_feature"] = cluster_feat
 
-        center, _, ep = self.proposal(cluster_feat, cluster_xyz, "proposal_")
-        end_points.update(ep)
-        center_q, _, ep = self.quad_proposal(quad_feat, quad_xyz, "proposal_")
-        end_points.update(ep)
-
-        # joint decoder queries: [object | quad]
-        query = torch.cat([self.decoder_query_proj(cluster_feat),
-                           self.quad_decoder_query_proj(quad_feat)], dim=1)
-        key = self.decoder_key_proj(seed_features)
-        prefixes = decoder_prefixes(cfg.num_decoder_layers)[1:]
-        for i, prefix in enumerate(prefixes):
-            query_pos = torch.cat([center, center_q], dim=1).detach()
-            query = self.decoder[i](query, key, query_pos, seed_xyz,
-                                    generator)
-            center, _, ep = self.prediction_heads[i](
-                query[:, :cfg.num_proposal], cluster_xyz, prefix)
+        with span("model.proposal"):
+            center, _, ep = self.proposal(cluster_feat, cluster_xyz,
+                                          "proposal_")
             end_points.update(ep)
-            center_q, _, ep = self.prediction_quad_heads[i](
-                query[:, cfg.num_proposal:], quad_xyz, prefix)
+            center_q, _, ep = self.quad_proposal(quad_feat, quad_xyz,
+                                                 "proposal_")
             end_points.update(ep)
+
+        with span("model.decoder"):
+            # joint decoder queries: [object | quad]
+            query = torch.cat([self.decoder_query_proj(cluster_feat),
+                               self.quad_decoder_query_proj(quad_feat)],
+                              dim=1)
+            key = self.decoder_key_proj(seed_features)
+            prefixes = decoder_prefixes(cfg.num_decoder_layers)[1:]
+            for i, prefix in enumerate(prefixes):
+                query_pos = torch.cat([center, center_q], dim=1).detach()
+                query = self.decoder[i](query, key, query_pos, seed_xyz,
+                                        generator)
+                with span("decoder.object_head"):
+                    center, _, ep = self.prediction_heads[i](
+                        query[:, :cfg.num_proposal], cluster_xyz, prefix)
+                    end_points.update(ep)
+                with span("decoder.quad_head"):
+                    center_q, _, ep = self.prediction_quad_heads[i](
+                        query[:, cfg.num_proposal:], quad_xyz, prefix)
+                    end_points.update(ep)
         return end_points

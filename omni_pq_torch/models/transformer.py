@@ -33,6 +33,7 @@ from torch import nn
 
 from .. import ops, parallel
 from ..ops import matmul as mm
+from ..utils.trace import span
 from .pointnet2 import BatchNorm, Conv, acc_dtype, linear
 
 
@@ -198,7 +199,10 @@ class TransformerDecoderLayer(nn.Module):
     to q/k/v every layer (transformer.py:162-228). Post-norm residuals,
     LayerNorm eps 1e-5. The position embeddings are passed in because the
     reference registers the same modules a second time in
-    `decoder_{self,cross}_posembeds` (their state_dict keys alias)."""
+    `decoder_{self,cross}_posembeds` (their state_dict keys alias). While
+    a profiler runs, the three blocks record the `utils.trace` spans
+    `decoder.self_attention` (with both position embeddings, which the
+    layer computes first), `decoder.cross_attention` and `decoder.ffn`."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  self_posembed: PositionEmbeddingLearned,
@@ -225,14 +229,17 @@ class TransformerDecoderLayer(nn.Module):
         def drop(x):
             return dropout(x, self.dropout, self.training, generator)
 
-        q_embed = self.self_posembed(query_pos)
-        k_embed = self.cross_posembed(key_pos)
-        qkv = query + q_embed
-        attn = self.self_attn(qkv, qkv, qkv, generator)
-        query = self.norm1(query + drop(attn))
-        kv = key + k_embed
-        attn = self.multihead_attn(query + q_embed, kv, kv, generator)
-        query = self.norm2(query + drop(attn))
-        ff = self.linear2(drop(torch.relu(self.linear1(query)))).to(
-            acc_dtype(self.linear2.compute_dtype))
-        return self.norm3(query + drop(ff))
+        with span("decoder.self_attention"):
+            q_embed = self.self_posembed(query_pos)
+            k_embed = self.cross_posembed(key_pos)
+            qkv = query + q_embed
+            attn = self.self_attn(qkv, qkv, qkv, generator)
+            query = self.norm1(query + drop(attn))
+        with span("decoder.cross_attention"):
+            kv = key + k_embed
+            attn = self.multihead_attn(query + q_embed, kv, kv, generator)
+            query = self.norm2(query + drop(attn))
+        with span("decoder.ffn"):
+            ff = self.linear2(drop(torch.relu(self.linear1(query)))).to(
+                acc_dtype(self.linear2.compute_dtype))
+            return self.norm3(query + drop(ff))

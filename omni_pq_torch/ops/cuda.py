@@ -22,6 +22,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.trace import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -82,6 +84,9 @@ _MORE_SIGNATURES = {
             ctypes.c_void_p],
     },
 }
+
+# each library's span name (`launch`)
+_SPAN_NAMES = {name: f"ops.{name}" for name in _SIGNATURES}
 
 # dynamic shared memory one block may use on an H100 (227 KB)
 MAX_SHARED_BYTES = 232448
@@ -166,12 +171,15 @@ def launch(name: str, device: torch.device, *args,
            entry: str | None = None) -> None:
     """Call kernel library `name`'s launcher (or its launcher `entry`, one
     of `_MORE_SIGNATURES[name]`) on `device`'s current stream; raise if the
-    launch was refused."""
-    fn, err, lib = library(name)
-    if entry is not None:
-        fn = getattr(lib, entry)
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    launch was refused. While a profiler runs, the launch records the
+    `utils.trace` span `ops.<name>`, which names the ctypes call that no
+    torch op wraps."""
+    with span(_SPAN_NAMES[name]):
+        fn, err, lib = library(name)
+        if entry is not None:
+            fn = getattr(lib, entry)
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({err(rc).decode()})")

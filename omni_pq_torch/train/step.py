@@ -51,6 +51,7 @@ from ..infer import eval_forward
 from ..models.pointnet2 import with_compute_dtype
 from ..losses import (gamma_mixture_guide_criterion, get_arkit_pc_loss,
                       get_consistency_loss, get_loss)
+from ..utils.trace import span
 from .state import TrainState, global_norm
 
 
@@ -113,9 +114,20 @@ def make_train_step(model, cfg: ModelConfig, mean_size_arr,
     when cfg.dropout > 0 or gamma_mixture is set. Stats are detached 0-d
     tensors under the JAX step's names: every `get_loss` stat, the gamma,
     consistency and ARKit stats of the flags that are on, `total_loss` and
-    `grad_norm` (the global norm before clipping)."""
+    `grad_norm` (the global norm before clipping).
+
+    While a profiler runs, the step records the spans of `utils.trace`:
+    `train.step` around it, its phases `step.forward.student`,
+    `step.forward.teacher`, `step.losses`, `step.backward` and
+    `step.update` (these six with the allocations on the model's CUDA
+    device), the losses' `losses.gather` (under `parallel.data_parallel`),
+    `losses.supervised`, `losses.gamma`, `losses.consistency` and
+    `losses.arkit` of the flags that are on, and the update's
+    `update.all_reduce` (under `parallel.data_parallel`),
+    `update.grad_norm`, `update.adamw` and `update.ema`."""
     num_layer = cfg.num_decoder_layers
     double = flags.ema or flags.gamma_mixture or flags.arkit
+    device = next(model.parameters()).device
 
     def _teacher_forward(teacher, clouds, generator):
         """The EMA teacher's train-mode forward under no_grad (bfloat16
@@ -133,10 +145,96 @@ def make_train_step(model, cfg: ModelConfig, mean_size_arr,
         return {k: v.float() if v.is_floating_point() else v
                 for k, v in ep.items()}
 
-    def train_step(state: TrainState, labeled: Mapping,
-                   weak: Optional[Mapping] = None,
-                   generator: Optional[torch.Generator] = None,
-                   consistency_weight=0.0) -> Dict[str, torch.Tensor]:
+    def _losses(ep, ema_ep, labeled, weak, segments, B, generator,
+                consistency_weight):
+        """The four loss families on the step's end points: (total, stats)."""
+        dp = parallel.current()
+        if dp is not None:  # the losses see the global batch
+            with span("losses.gather"):
+                ep = parallel.gather_rows(ep, segments)
+                if flags.ema:
+                    ema_ep = parallel.gather_rows(ema_ep, segments)
+                labeled = parallel.gather_rows(labeled)
+                if double:
+                    weak = parallel.gather_rows(weak)
+            B *= dp.world
+
+        # 1. supervised loss on the labeled half
+        with span("losses.supervised"):
+            merged = {k: v[:B] for k, v in ep.items()}
+            merged.update(labeled)
+            total, stats = get_loss(merged, mean_size_arr,
+                                    num_layer=num_layer,
+                                    pc_loss=flags.pc_loss,
+                                    near=flags.near_threshold,
+                                    far=flags.far_threshold)
+
+        # 2. gamma-mixture pseudo-labels on the weak half
+        if flags.gamma_mixture:
+            with span("losses.gamma"):
+                gm_ep = {k: v[B:] for k, v in ep.items()}
+                gm_ep["point_clouds"] = weak["point_clouds"][..., :3]
+                gm_ep["vertex_normals"] = weak["vertex_normals"]
+                mn, mv, ms, msc, engaged = gamma_mixture_guide_criterion(
+                    gm_ep, generator, use_fitted=flags.use_fitted_mixture)
+                gm_loss = (flags.lambda_metric_normal * mn
+                           + flags.lambda_metric_vertical * mv
+                           + flags.lambda_metric_size * ms
+                           + flags.lambda_metric_score * msc)
+                stats.update(metric_normal=mn, metric_vertical=mv,
+                             metric_size=ms, metric_score=msc,
+                             gamma_mixture_filter_loss=gm_loss,
+                             gamma_engaged_frac=engaged)
+                total = total + gm_loss
+
+        # 3. mean-teacher consistency over the full double batch
+        if flags.ema:
+            with span("losses.consistency"):
+                cons_ep = dict(ep)
+                for key in ("flip_x_axis", "flip_y_axis", "rot_mat",
+                            "scale"):
+                    cons_ep[key] = torch.cat([labeled[key], weak[key]])
+                cons_loss, cons_stats = get_consistency_loss(
+                    cons_ep, ema_ep, mean_size_arr, num_layer=num_layer)
+                cons_loss = cons_loss * consistency_weight
+                stats.update(cons_stats)
+                # cons_stats["consistency_loss"] is the reference's
+                # per-prefix object mean; this is the ramped-weight total
+                stats["weighted_consistency_loss"] = cons_loss
+                total = total + cons_loss
+
+        # 4. ARKit omni-supervised pc loss on the weak half
+        if flags.arkit:
+            with span("losses.arkit"):
+                ark_loss, collisions = get_arkit_pc_loss(
+                    ep, {k: weak[k] for k in ("center_label", "size_label",
+                                              "num_gt_boxes")})
+                ark_loss = ark_loss * flags.lambda_arkit_pc_loss
+                stats["arkit_pc_loss"] = ark_loss
+                stats["arkit_collisions"] = collisions
+                total = total + ark_loss
+        stats["total_loss"] = total
+        return total, stats
+
+    def _update(state, stats):
+        """The global gradient (the mean over ranks under
+        `parallel.data_parallel`), its norm, AdamW and the EMA update."""
+        if parallel.current() is not None:
+            with span("update.all_reduce"):
+                parallel.all_reduce_grads(model.parameters())
+        with span("update.grad_norm"), torch.no_grad():
+            stats["grad_norm"] = global_norm(
+                p.grad for p in model.parameters() if p.grad is not None)
+        with span("update.adamw"):
+            state.apply_gradients()
+        if flags.ema:
+            with span("update.ema"):
+                state.ema_update(flags.ema_decay)
+        return {k: torch.as_tensor(v).detach() for k, v in stats.items()}
+
+    def _step(state: TrainState, labeled: Mapping,
+              weak: Optional[Mapping], generator: Optional[torch.Generator],
+              consistency_weight) -> Dict[str, torch.Tensor]:
         if state.model is not model:
             raise ValueError("the state holds another model than the step")
         if double and weak is None:
@@ -144,89 +242,38 @@ def make_train_step(model, cfg: ModelConfig, mean_size_arr,
         if flags.ema and state.ema_model is None:
             raise ValueError("flags.ema needs a TrainState with ema=True")
         B = labeled["point_clouds"].shape[0]
-        inputs = labeled["point_clouds"]
         segments = (B,)
         if double:
-            inputs = torch.cat([inputs, weak["point_clouds"]])
             segments = (B, weak["point_clouds"].shape[0])
-        model.train()
+        ema_ep = None
         with parallel.batch_segments(*segments):
-            ep = model(inputs, generator=generator)
+            with span("step.forward.student", device):
+                inputs = labeled["point_clouds"]
+                if double:
+                    inputs = torch.cat([inputs, weak["point_clouds"]])
+                model.train()
+                ep = model(inputs, generator=generator)
             if flags.ema:
-                ema_ep = _teacher_forward(
-                    state.ema_model, torch.cat([labeled["ema_point_clouds"],
-                                                weak["ema_point_clouds"]]),
-                    generator)
-        dp = parallel.current()
-        if dp is not None:  # the losses see the global batch
-            ep = parallel.gather_rows(ep, segments)
-            if flags.ema:
-                ema_ep = parallel.gather_rows(ema_ep, segments)
-            labeled = parallel.gather_rows(labeled)
-            if double:
-                weak = parallel.gather_rows(weak)
-            B *= dp.world
+                with span("step.forward.teacher", device):
+                    ema_ep = _teacher_forward(
+                        state.ema_model,
+                        torch.cat([labeled["ema_point_clouds"],
+                                   weak["ema_point_clouds"]]), generator)
+        with span("step.losses", device):
+            total, stats = _losses(ep, ema_ep, labeled, weak, segments, B,
+                                   generator, consistency_weight)
+        with span("step.backward", device):
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        with span("step.update", device):
+            return _update(state, stats)
 
-        # 1. supervised loss on the labeled half
-        merged = {k: v[:B] for k, v in ep.items()}
-        merged.update(labeled)
-        total, stats = get_loss(merged, mean_size_arr, num_layer=num_layer,
-                                pc_loss=flags.pc_loss,
-                                near=flags.near_threshold,
-                                far=flags.far_threshold)
-
-        # 2. gamma-mixture pseudo-labels on the weak half
-        if flags.gamma_mixture:
-            gm_ep = {k: v[B:] for k, v in ep.items()}
-            gm_ep["point_clouds"] = weak["point_clouds"][..., :3]
-            gm_ep["vertex_normals"] = weak["vertex_normals"]
-            mn, mv, ms, msc, engaged = gamma_mixture_guide_criterion(
-                gm_ep, generator, use_fitted=flags.use_fitted_mixture)
-            gm_loss = (flags.lambda_metric_normal * mn
-                       + flags.lambda_metric_vertical * mv
-                       + flags.lambda_metric_size * ms
-                       + flags.lambda_metric_score * msc)
-            stats.update(metric_normal=mn, metric_vertical=mv, metric_size=ms,
-                         metric_score=msc, gamma_mixture_filter_loss=gm_loss,
-                         gamma_engaged_frac=engaged)
-            total = total + gm_loss
-
-        # 3. mean-teacher consistency over the full double batch
-        if flags.ema:
-            cons_ep = dict(ep)
-            for key in ("flip_x_axis", "flip_y_axis", "rot_mat", "scale"):
-                cons_ep[key] = torch.cat([labeled[key], weak[key]])
-            cons_loss, cons_stats = get_consistency_loss(
-                cons_ep, ema_ep, mean_size_arr, num_layer=num_layer)
-            cons_loss = cons_loss * consistency_weight
-            stats.update(cons_stats)
-            # cons_stats["consistency_loss"] is the reference's per-prefix
-            # object mean; this is the ramped-weight total
-            stats["weighted_consistency_loss"] = cons_loss
-            total = total + cons_loss
-
-        # 4. ARKit omni-supervised pc loss on the weak half
-        if flags.arkit:
-            ark_loss, collisions = get_arkit_pc_loss(
-                ep, {k: weak[k] for k in ("center_label", "size_label",
-                                          "num_gt_boxes")})
-            ark_loss = ark_loss * flags.lambda_arkit_pc_loss
-            stats["arkit_pc_loss"] = ark_loss
-            stats["arkit_collisions"] = collisions
-            total = total + ark_loss
-
-        stats["total_loss"] = total
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        if dp is not None:  # the mean over ranks: the global gradient
-            parallel.all_reduce_grads(model.parameters())
-        with torch.no_grad():
-            stats["grad_norm"] = global_norm(
-                p.grad for p in model.parameters() if p.grad is not None)
-        state.apply_gradients()
-        if flags.ema:
-            state.ema_update(flags.ema_decay)
-        return {k: torch.as_tensor(v).detach() for k, v in stats.items()}
+    def train_step(state: TrainState, labeled: Mapping,
+                   weak: Optional[Mapping] = None,
+                   generator: Optional[torch.Generator] = None,
+                   consistency_weight=0.0) -> Dict[str, torch.Tensor]:
+        with span("train.step", device):
+            return _step(state, labeled, weak, generator, consistency_weight)
 
     return train_step
 

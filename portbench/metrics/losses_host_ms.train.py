@@ -1,0 +1,7 @@
+"""`losses_host_ms.train`: host ms a step in the losses (span
+`step.losses`)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.host_ms_per_step(ctx, ("step.losses",))

@@ -196,6 +196,14 @@ def test_train_eval_resume_on_fake_scannet(scannet, tmp_path):
     summary = json.loads((run / "profile/summary.json").read_text())
     assert summary["steps"] == 1 and summary["wall_ms"] > 0
     assert (run / "profile/trace.json").exists()
+    # the spans of the profiled step and of the wait for its batches
+    host_ms = summary["host_ms_per_step"]
+    assert {"train.step", "train.loader_wait", "step.forward.student",
+            "step.forward.teacher", "step.losses", "step.backward",
+            "step.update"} <= set(host_ms)
+    phases = sum(v for k, v in host_ms.items() if k.startswith("step."))
+    assert 0 < phases <= host_ms["train.step"]
+    assert summary["allocations_per_step"] is None  # no card
 
     # the eval CLI on the last checkpoint: the in-loop student's numbers
     f1 = eval_cli.main(SMOKE + ["--data_root", str(scannet), "--device",

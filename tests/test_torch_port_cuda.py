@@ -923,3 +923,57 @@ def test_float64_forward_on_card_matches_cpu(dev):
             assert gap <= 1e-9 * float(want.abs().max()), (k, gap)
         else:
             assert torch.equal(got, want), k
+
+
+def test_trace_spans_on_the_profiler_clock_on_card(dev):
+    """The spans of a --smoke semi-supervised step (`utils.trace`) under
+    torch.profiler with CUDA activity: every record within 50 us of its
+    record_function event on the profiler's clock, the kernels' ctypes
+    launches under `ops.fps` and `ops.ball_query` (6 FPS and 5
+    ball-query launches a forward), and `allocations` above 0 on
+    `train.step` and each of its phases."""
+    import gc
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from omni_pq_torch.config import SCANNET_MEAN_SIZES
+    from omni_pq_torch.train import (OptimizerConfig, TrainFlags, TrainState,
+                                     batch_to_tensors, make_train_step)
+    from omni_pq_torch.utils import trace
+    cfg = ModelConfig(**{**SMOKE_MODEL, "num_points": 2048})
+    model = build_model(cfg, dev, seed=3)
+    state = TrainState(model, OptimizerConfig(), ema=True)
+    step = make_train_step(model, cfg, SCANNET_MEAN_SIZES, TrainFlags())
+    lab, weak = (batch_to_tensors(make_batch(np.random.default_rng(s), 2,
+                                             cfg.num_points), dev)
+                 for s in (4, 5))
+    gen = torch.Generator(dev).manual_seed(0)
+    step(state, lab, weak, generator=gen, consistency_weight=0.05)
+    torch.cuda.synchronize()
+    trace.clear()
+    gc.disable()  # a collection inside a span's exit would blur its clock
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, lab, weak, generator=gen, consistency_weight=0.05)
+            torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    recs = trace.records()
+    trace.clear()
+    events = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            events.setdefault(ev.name(), []).append(
+                (ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+    for r in recs:
+        assert min(max(abs(s - r.t0_ns), abs(e - r.t1_ns))
+                   for s, e in events[r.name]) <= 50_000, r
+    names = [r.name for r in recs]
+    assert (names.count("ops.fps"), names.count("ops.ball_query")) == (12, 10)
+    phases = [r for r in recs
+              if r.name == "train.step" or r.name.startswith("step.")]
+    assert len(phases) == 6
+    for r in phases:
+        assert r.counters["allocations"] > 0, r
