@@ -76,8 +76,12 @@ when every phase passed:
      calls (24 passes, 24 stats and 8 pool launches) against their plain
      version; one step each with the fitted
      mixture and the ARKit loss; warmed ms/step in turns, peak memory, a
-     profile of one step per route; one step with the last quad head rigged
-     so that the gamma criterion engages (gamma_engaged_frac > 0).
+     profile of one step per route; a profile of one more step per route,
+     which replays the step's CUDA graph: its `train.step` span's counter
+     `graph_replays` 1, no kernel wrapper called, and 12 fps_kernel and 10
+     ball_query_kernel launches among the card's events (phase 8's
+     supervised step likewise: 6 and 5); one step with the last quad head
+     rigged so that the gamma criterion engages (gamma_engaged_frac > 0).
  13. bfloat16 serving path: ModelConfig(compute_dtype="bfloat16",
      fused_sa=True) eval forward, B=16, same weights and scenes: 6 FPS, 5
      ball-query and 4 bfloat16 fused launches (counters, and 4
@@ -121,7 +125,8 @@ when every phase passed:
      and checkpoints every epoch, one step profiled; every semi step 12 FPS
      and 10 ball-query-group launches and every eval forward 6 and 5
      (record_group_calls, the kernels' counters set to 0 before each CLI
-     and read after), the checkpoints the policy calls for, every metric
+     and read after; a step that replays its CUDA graph calls no wrapper
+     and counts 0), the checkpoints the policy calls for, every metric
      finite; the CLI step's wall and loader-wait ms, the profiled step's
      busy share beside phases 12 and 15, the eval pass's seconds, peak
      memory; cli.eval on ema_best (the policy's, else the epoch-2 file
@@ -211,13 +216,16 @@ when every phase passed:
      student after step 1 and of the student, and the teacher where the
      arm has one, after step 6). The launch counts are set to 0 before
      each run and read after: 6 FPS and 5 ball-query-group launches a
-     forward (12, 20, and 12 forwards an arm, 8 for sup_ft); finite losses,
+     forward through the kernels' wrappers (5, 12, and 12 forwards an arm,
+     8 for sup_ft; a step that replays its CUDA graph calls no wrapper:
+     convergence's steps 4-10, each criterion's steps 4-5); finite losses,
      the backfill, gamma_engaged_frac where the arm has the criterion; the
      ARKit arms' arkit_collisions > 0, their weak pools without quad
      ground truth, and the pools they trained on centred (every scene's
      median xy within 1e-3 m of 0) for arkit_centered_ft and not for
-     arkit_ft; ms/step, eval seconds and peak memory printed, one line a
-     run. The kernels line carries each run's launches.
+     arkit_ft; ms/step, eval seconds, peak memory and the most memory
+     reserved (the graphs' pool with it, from an emptied cache) printed,
+     one line a run. The kernels line carries each run's launches.
  22. the student-fall diagnosis script (scripts/student_fall_torch.py) at
      full ModelConfig() width, in this process, its saved state in a
      temporary directory removed after: a gamma_ft trunk of 3 supervised
@@ -241,6 +249,7 @@ Phase 20's profile goes to chip_smoke_float64_profile.txt beside them.
 from __future__ import annotations
 
 import contextlib
+import gc
 import dataclasses
 import importlib
 import json
@@ -775,6 +784,49 @@ def profile_step(run, expect, step_ms):
             traced[0].table(sort_by="self_device_time_total", row_limit=25))
 
 
+def replayed_step_kernels(run, want, where, tries=3):
+    """One call of `run`, a train step whose CUDA graph is captured,
+    under torch.profiler: its `train.step` span's counter `graph_replays`
+    is 1, no kernel wrapper is called, and the point kernels that ran on
+    the card, counted from the profiler's device events, are `want`
+    ({kernel: launches}). The profiler may lose a window's events now and
+    then: a window short of `want` is traced again, up to `tries` times.
+    Returns {kernel: launches seen}, chunk_box_kernel's too."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from omni_pq_torch import ops
+    from omni_pq_torch.utils import trace
+    wrappers = ("fps", "ball_query", "ball_query_group",
+                "ball_query_group_feats", "fused_mlp_pool")
+    for attempt in range(tries):
+        trace.clear()
+        before = [getattr(ops, w).launches for w in wrappers]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        called = [getattr(ops, w).launches - n
+                  for w, n in zip(wrappers, before)]
+        replays = [r.counters.get("graph_replays") for r in trace.records()
+                   if r.name == "train.step"]
+        trace.clear()
+        check(replays == [1], f"{where}: the profiled call's train.step "
+              f"graph_replays {replays}, expected [1]")
+        check(not any(called), f"{where}: a replayed call called the "
+              f"kernel wrappers {dict(zip(wrappers, called))}")
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        seen = {k: sum(1 for n in names if re.search(rf"::{k}\b", n))
+                for k in (*want, "chunk_box_kernel")}
+        if {k: seen[k] for k in want} == want:
+            return seen
+        print(f"[profiler] {where}: window {attempt + 1} of {tries} saw "
+              f"{seen}", file=sys.stderr)
+    check(False, f"{where}: a replayed step's kernels on the card {seen}, "
+          f"expected {want}")
+
+
 def route_probe(cfg, labeled, fused: bool):
     """A train-mode forward of fresh seeded weights with the step's dropout
     generator, and the gradients of a fixed linear functional of the
@@ -923,6 +975,12 @@ def train_phase(cfg, dev, counted, card):
             lambda: r["step"](r["state"], labeled, generator=r["gen"]),
             expect, float(np.mean(times[route])))
         print(f"[train] {route} profile of one step: " + top[route]["line"])
+        top[route]["replayed_kernels"] = replayed_step_kernels(
+            lambda: r["step"](r["state"], labeled, generator=r["gen"]),
+            {"fps_kernel": 6, "ball_query_kernel": 5},
+            f"[train] {route} replayed step")
+        print(f"[train] {route}: a replayed step's point kernels on the "
+              f"card {top[route]['replayed_kernels']}")
         lines.append(f"--- {route} step\n" + table)
         print(f"[train] {route}: {np.mean(times[route]):.3f} ms/step "
               f"({times[route]}), peak memory "
@@ -1556,6 +1614,11 @@ def semi_phase(cfg, dev, card, sup_stat_names):
                                          float(np.mean(times[route])))
         lines.append(f"--- semi-supervised {route} step\n" + table)
         print(f"[semi] {route} profile of one step: " + top[route]["line"])
+        top[route]["replayed_kernels"] = replayed_step_kernels(
+            r["run"], {"fps_kernel": 12, "ball_query_kernel": 10},
+            f"[semi] {route} replayed step")
+        print(f"[semi] {route}: a replayed step's point kernels on the "
+              f"card {top[route]['replayed_kernels']}")
         print(f"[semi] {route}: {np.mean(times[route]):.3f} ms/step "
               f"({times[route]}), peak memory {r['peak'] / 2**30:.2f} GiB "
               f"[{card}]")
@@ -1739,6 +1802,7 @@ def cli_phase(card, report):
     from omni_pq_torch.cli import infer as infer_cli
     from omni_pq_torch.cli import train as train_cli
     from omni_pq_torch.cli.args import parse_option
+    from omni_pq_torch.train.step import WARMUP_CALLS
     from omni_pq_torch.data import Loader, ScannetDetectionDataset
     from omni_pq_torch.infer import build_model
     from omni_pq_torch.train import (OptimizerConfig, TrainState,
@@ -1824,14 +1888,24 @@ def cli_phase(card, report):
         launches = fused_launch_counts(counted)
         seen = {k: sum(c[k] for kind in calls for c in calls[kind])
                 for k in ("fps", "ball_query_group")}
+        # a replayed train step (every call of its one batch shape after
+        # the warm-ups and the capture) calls no wrapper: its kernels launch
+        # from the graph
+        semi = {"fps": 12, "ball_query_group": 10}
+        steps = calls["train_step"]
+        replayed = max(0, len(steps) - WARMUP_CALLS - 1)
         check(launches["fused_mlp_pool"] == 0 and all(
-            launches[k] == seen[k] for k in seen), f"{what}: launches "
-            f"{launches}, counted in steps and eval forwards {seen}")
-        for kind, want in (("train_step", {"fps": 12, "ball_query_group": 10}),
-                           ("eval_forward", {"fps": 6,
-                                             "ball_query_group": 5})):
-            check(all(c == want for c in calls[kind]), f"{what}: {kind} "
-                  f"launches {calls[kind]}, expected {want} each")
+            launches[k] == seen[k] for k in seen),
+            f"{what}: launches {launches}, counted in steps and eval "
+            f"forwards {seen}")
+        want = [semi] * (len(steps) - replayed) + [
+            {"fps": 0, "ball_query_group": 0}] * replayed
+        check(steps == want, f"{what}: train_step launches {steps}, "
+              f"expected {want}")
+        want = {"fps": 6, "ball_query_group": 5}
+        check(all(c == want for c in calls["eval_forward"]), f"{what}: "
+              f"eval_forward launches {calls['eval_forward']}, expected "
+              f"{want} each")
         return out, launches, {k: len(v) for k, v in calls.items()}
 
     run = os.path.join(work, "run")
@@ -3360,16 +3434,31 @@ EXPERIMENT_KNOBS = {
 # Protocol B's arms, each run on its own (AB_ARMS=<arm>)
 AB_ARMS = ("sup_ft", "ema_ft", "gamma_ft", "gamma_fixed_ft", "arkit_ft",
            "arkit_centered_ft")
-# FPS and ball-query-group launches each driver's run makes: a forward
-# launches 6 and 5; convergence 10 supervised steps at B=4 and evals after
-# steps 1 and 10; fitted_mixture 5 semi steps (student + teacher) a
-# criterion; a semi_sup_ab arm 3 supervised and 3 semi steps, the
+
+
+def wrapped_steps(steps: int) -> int:
+    """The calls, of `steps` in a row of one step function, state and batch
+    shape, that run through the kernels' wrappers: the warm-ups and the
+    capture (the later calls replay the CUDA graph)."""
+    from omni_pq_torch.train.step import WARMUP_CALLS
+    return min(steps, WARMUP_CALLS + 1)
+
+
+# forwards through the kernels' wrappers in each driver's run (a forward
+# launches 6 FPS and 5 ball-query-group kernels): convergence 10
+# supervised steps at B=4 and evals after steps 1 and 10; fitted_mixture 5
+# semi steps (student + teacher) a criterion, each on its own state; a
+# semi_sup_ab arm 3 supervised and 3 semi steps (two step functions), the
 # student's eval after step 1, the student's and the teacher's after step
-# 6; `sup_ft` 6 supervised steps and the student's two evals
-EXPERIMENT_FORWARDS = {"convergence": 10 + 2, "fitted_mixture": 2 * 5 * 2,
-                       **{f"semi_sup_ab:{arm}": 3 + 3 * 2 + 1 + 2
-                          for arm in AB_ARMS},
-                       "semi_sup_ab:sup_ft": 6 + 1 + 1}
+# 6; `sup_ft` 3 + 3 supervised steps (two step functions) and the
+# student's two evals
+def experiment_forwards() -> dict:
+    return {
+        "convergence": wrapped_steps(10) + 2,
+        "fitted_mixture": 2 * wrapped_steps(5) * 2,
+        **{f"semi_sup_ab:{arm}": wrapped_steps(3) + wrapped_steps(3) * 2
+           + 1 + 2 for arm in AB_ARMS},
+        "semi_sup_ab:sup_ft": 2 * wrapped_steps(3) + 1 + 1}
 
 
 @contextlib.contextmanager
@@ -3435,6 +3524,8 @@ def experiments_phase(dev, card):
             runs.append((name, semi_sup_ab))
         for name, driver in runs:
             torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
             ops.fps.launches = 0
             ops.ball_query_group.launches = 0
@@ -3446,7 +3537,7 @@ def experiments_phase(dev, card):
             launches = {"fps": ops.fps.launches,
                         "ball_query_group": ops.ball_query_group.launches}
             check(rc == 0, f"[experiments] {name} returned {rc}")
-            n = EXPERIMENT_FORWARDS[name]
+            n = experiment_forwards()[name]
             check(launches == {"fps": 6 * n, "ball_query_group": 5 * n},
                   f"[experiments] {name}: launches {launches}, expected "
                   f"{6 * n} fps and {5 * n} ball_query_group ({n} forwards)")
@@ -3454,6 +3545,8 @@ def experiments_phase(dev, card):
                 out = json.load(f)
             report[name] = {"launches": launches, "wall_s": wall,
                             "peak_gib": torch.cuda.max_memory_allocated(dev)
+                            / 2**30,
+                            "reserved_gib": torch.cuda.max_memory_reserved(dev)
                             / 2**30}
             if name == "convergence":
                 curve = out["curves"]["0"]
@@ -3487,7 +3580,8 @@ def experiments_phase(dev, card):
             r = report[name]
             print(f"[experiments] {name}: {n} forwards, launches {launches}, "
                   f"ms/step {r['ms_per_step']}, eval {r['eval_s']} s, wall "
-                  f"{wall:.1f} s, peak {r['peak_gib']:.2f} GiB [{card}]")
+                  f"{wall:.1f} s, peak {r['peak_gib']:.2f} GiB, reserved "
+                  f"{r['reserved_gib']:.2f} GiB [{card}]")
     return report
 
 

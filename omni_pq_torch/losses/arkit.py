@@ -24,6 +24,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from .primitives import constant
 from .supervised import get_2d_box_corners
 
 CONF_THRESH = 0.1
@@ -55,7 +56,7 @@ def get_arkit_pc_loss(ep: Dict, weak_labels: Dict
     pts_mask = box_mask.repeat_interleave(4, dim=1)
 
     # flip normals inward: toward pseudo scene center (0,0,1), z zeroed
-    offset = qc.new_tensor([0.0, 0.0, 1.0]) - qc.detach()
+    offset = constant((0.0, 0.0, 1.0), qc) - qc.detach()
     offset = torch.cat([offset[..., :2], torch.zeros_like(offset[..., 2:])],
                        dim=-1)
     reverse = (offset * nv).sum(-1, keepdim=True) < 0

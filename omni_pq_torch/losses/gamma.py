@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.nn_distance import smoothl1_loss
+from .primitives import constant
 
 GM_CLIP = 0.85
 CONF_THRESH = 0.1
@@ -46,7 +47,9 @@ PAD = 1e9  # large but finite: inf would leak NaN into gradients
 
 
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    if torch.is_tensor(v):
+        return v.to(dtype=like.dtype, device=like.device)
+    return constant(float(v), like)
 
 
 def gamma_logpdf(x, a, b):
@@ -156,7 +159,7 @@ def quad_point_mixture_metric(score, center, normal, quad_size, pc_ds, pn_ds,
     reference's `< 300 kept points -> all zeros` policy via enough_points.
     Gradients stop where the JAX package stops them: the norm of n2, n3 in
     `vertical`, the keep mask, metric_normal and v_eps."""
-    size = quad_size * quad_size.new_tensor([1.0 / 1.5, 1.0])
+    size = quad_size * constant((1.0 / 1.5, 1.0), quad_size)
     n2 = normal[..., :2] / (torch.linalg.vector_norm(
         normal[..., :2], dim=-1, keepdim=True) + 1e-12).detach()
     n3 = torch.cat([n2, torch.zeros_like(n2[..., :1])], dim=-1)
@@ -168,7 +171,7 @@ def quad_point_mixture_metric(score, center, normal, quad_size, pc_ds, pn_ds,
     offset = pc_ds - center[..., None, :]
     vertical = _dot(offset, n3.detach()).abs()
 
-    z_dir = n3.new_tensor([0.0, 0.0, 1.0]).expand_as(n3)
+    z_dir = constant((0.0, 0.0, 1.0), n3).expand_as(n3)
     x_dir = torch.linalg.cross(z_dir, n3, dim=-1)
     x_dis = _dot(offset, x_dir).abs()
     z_dis = _dot(offset, z_dir).abs()

@@ -6,9 +6,25 @@ mirrors the reference's SigmoidFocalClassificationLoss
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..ops.nn_distance import smoothl1_loss, huber_loss  # noqa: F401 (re-export)
+
+
+def constant(values, like: torch.Tensor) -> torch.Tensor:
+    """`like.new_tensor(values)` for a float or a tuple of floats, made once
+    a dtype and device and shared after: a copy from the host synchronises,
+    which a captured CUDA graph of the train step cannot hold. Read it,
+    never write it."""
+    return _constant(values, like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values, dtype: torch.dtype, device: torch.device
+              ) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def sigmoid_focal_loss(prediction: torch.Tensor, target: torch.Tensor,

@@ -24,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..ops.nn_distance import nn_distance, smoothl1_loss
+from .primitives import constant
 
 FAR_THRESHOLD = 0.6
 NEAR_THRESHOLD = 0.3
@@ -50,8 +51,7 @@ def weighted_ce(logits, labels, weights=None):
     """Per-element cross entropy -w[y]*log_softmax(x)[y] (torch CE 'none')."""
     ll = select_last_dim(torch.log_softmax(logits, dim=-1), labels)
     if weights is not None:
-        wt = torch.as_tensor(weights, dtype=logits.dtype,
-                             device=logits.device)
+        wt = constant(tuple(weights), logits)
         return -wt[labels.long()] * ll
     return -ll
 

@@ -19,12 +19,20 @@ parameters (optax takes them in JAX's default float type, float64 once
 schedule's). So it is not torch.optim.AdamW (which orders the decay and the bias
 corrections differently). It runs as multi-tensor (`torch._foreach_*`)
 ops, a few launches a step instead of several per parameter.
+
+The scalars a step computes on the host (each group's learning rate and
+bias corrections, the EMA's alpha) reach the ops as 0-dim tensors read
+from one device buffer (`StepScalars`), filled before the step: a captured
+CUDA graph replays with new values where a Python scalar would have been
+frozen into it. Each value keeps its host formula and rounding, and an op
+rounds a 0-dim tensor to its math type as it rounds a Python scalar, so
+the arithmetic is bitwise the same.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Iterable, Optional, Tuple
+from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +73,58 @@ def _bias_correction(decay: float, t: int, dtype: torch.dtype) -> float:
     return float(ft(1) - ft(decay) ** ft(t))
 
 
+def ema_alpha(decay: float, step: int) -> float:
+    """update_ema_variables' alpha = min(1 - 1/(step+1), decay), in
+    float32."""
+    return float(min(np.float32(1.0) - np.float32(1.0)
+                     / (np.float32(step) + np.float32(1.0)),
+                     np.float32(decay)))
+
+
+class StepScalars:
+    """Named host scalars of a step on `device`: one float64 buffer, filled
+    by one copy from a pinned host buffer (the copy waits for the last
+    fill's copy to have run, so that the host never rewrites values a
+    queued step has yet to read), and read by the ops as 0-dim tensors.
+    A float64 buffer holds every value exactly; `read` casts to the dtype
+    of the op, as the op casts a Python scalar."""
+
+    def __init__(self, names: Sequence[str], device):
+        self.names = tuple(names)
+        self.index = {n: i for i, n in enumerate(self.names)}
+        self.buffer = torch.zeros(len(self.names), dtype=torch.float64,
+                                  device=device)
+        self._host, self._copied = self.buffer, None
+        if self.buffer.is_cuda:
+            self._host = torch.zeros(len(self.names), dtype=torch.float64,
+                                     pin_memory=True)
+            self._copied = torch.cuda.Event()
+
+    @classmethod
+    def holding(cls, values: Mapping[str, float], device) -> "StepScalars":
+        out = cls(values, device)
+        out.fill(values)
+        return out
+
+    def fill(self, values: Mapping[str, float]) -> None:
+        """Every name's new value, in one copy to the device."""
+        if set(values) != set(self.names):
+            raise KeyError(f"step scalars {sorted(values)}, expected "
+                           f"{sorted(self.names)}")
+        if self._copied is not None:
+            self._copied.synchronize()
+        host = self._host.numpy()
+        for name, v in values.items():
+            host[self.index[name]] = v
+        if self._copied is not None:
+            self.buffer.copy_(self._host, non_blocking=True)
+            self._copied.record()
+
+    def read(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        """The value `name` as a 0-dim tensor of `dtype`."""
+        return self.buffer[self.index[name]].to(dtype)
+
+
 class AdamW(torch.optim.Optimizer):
     """optax.chain(clip_by_global_norm, multi_transform({base, decoder}:
     adamw)), wrapped in MultiSteps when step_freq > 1. `step()` reads the
@@ -91,8 +151,22 @@ class AdamW(torch.optim.Optimizer):
         self.count = 0      # updates applied (optax's inner count)
         self.mini_step = 0  # gradients accumulated toward the next update
 
+    def step_values(self) -> Dict[str, float]:
+        """The host scalars of the next update: each group's negated
+        learning rate (the schedule's, in float32) and bias corrections."""
+        t = self.count + 1
+        out = {}
+        for group in self.param_groups:
+            name, dtype = group["name"], group["params"][0].dtype
+            out[f"{name}.neg_lr"] = -group["schedule"](self.count)
+            out[f"{name}.bc1"] = _bias_correction(group["b1"], t, dtype)
+            out[f"{name}.bc2"] = _bias_correction(group["b2"], t, dtype)
+        return out
+
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, scalars: StepScalars, closure=None):
+        """One update (or one accumulated gradient); `scalars` holds
+        `step_values()` on the parameters' device."""
         params = [p for g in self.param_groups for p in g["params"]]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
@@ -114,13 +188,13 @@ class AdamW(torch.optim.Optimizer):
                              self.clip_norm / norm)
         grads = torch._foreach_mul(grads, factor)
         by_param = dict(zip(map(id, params), grads))
-        t = self.count + 1
         for group in self.param_groups:
             b1, b2, eps = group["b1"], group["b2"], group["eps"]
-            lr = group["schedule"](self.count)
             ps = group["params"]
-            bc1 = _bias_correction(b1, t, ps[0].dtype)
-            bc2 = _bias_correction(b2, t, ps[0].dtype)
+            name, dtype = group["name"], ps[0].dtype
+            neg_lr = scalars.read(f"{name}.neg_lr", dtype)
+            bc1 = scalars.read(f"{name}.bc1", dtype)
+            bc2 = scalars.read(f"{name}.bc2", dtype)
             gs = [by_param[id(p)] for p in ps]
             for p in ps:
                 if "mu" not in self.state[p]:
@@ -137,7 +211,7 @@ class AdamW(torch.optim.Optimizer):
             torch._foreach_add_(denom, eps)
             u = torch._foreach_div(torch._foreach_div(mus, bc1), denom)
             torch._foreach_add_(u, torch._foreach_mul(ps, group["weight_decay"]))
-            torch._foreach_add_(ps, torch._foreach_mul(u, -lr))
+            torch._foreach_add_(ps, torch._foreach_mul(u, neg_lr))
         self.count += 1
         return None
 
@@ -156,20 +230,35 @@ class TrainState:
         self.ema_model: Optional[nn.Module] = (
             copy.deepcopy(model).eval() if ema else None)
 
-    def apply_gradients(self) -> None:
-        """One optimiser step from the parameters' .grad."""
-        self.optimizer.step()
+    def apply_gradients(self, scalars: StepScalars) -> None:
+        """One optimiser step from the parameters' .grad (`scalars`: see
+        AdamW.step)."""
+        self.optimizer.step(scalars)
         self.step += 1
 
+    def count_replayed_step(self) -> None:
+        """The host counters of one `apply_gradients` whose device work
+        ran in a replayed CUDA graph (step_freq 1: every call updates)."""
+        self.optimizer.count += 1
+        self.step += 1
+
+    @staticmethod
+    def ema_values(decay: float, step: int) -> Dict[str, float]:
+        """The EMA update's host scalars after `step` steps: alpha and
+        1 - alpha (in float64, which an op rounds to its type)."""
+        alpha = ema_alpha(decay, step)
+        return {"ema.alpha": alpha, "ema.one_minus_alpha": 1.0 - alpha}
+
     @torch.no_grad()
-    def ema_update(self, decay: float) -> None:
+    def ema_update(self, decay: float, scalars: StepScalars) -> None:
         """update_ema_variables (train.py:435-439): alpha ramps with the
         step, alpha = min(1 - 1/(step+1), decay); ema = alpha*ema +
-        (1-alpha)*param over the parameters."""
+        (1-alpha)*param over the parameters. `scalars` holds `ema_values`
+        of this step on the parameters' device."""
         if self.ema_model is None:
             raise ValueError("this TrainState has no EMA replica")
-        alpha = float(min(np.float32(1.0) - np.float32(1.0)
-                          / (np.float32(self.step) + np.float32(1.0)),
-                          np.float32(decay)))
-        for e, p in zip(self.ema_model.parameters(), self.model.parameters()):
-            e.copy_(alpha * e + (1.0 - alpha) * p)
+        params = list(self.model.parameters())
+        alpha = scalars.read("ema.alpha", params[0].dtype)
+        rest = scalars.read("ema.one_minus_alpha", params[0].dtype)
+        for e, p in zip(self.ema_model.parameters(), params):
+            e.copy_(alpha * e + rest * p)

@@ -22,7 +22,9 @@ the clock of the profiler's events (`time.time_ns()`, which `start_ns()` of
 a kineto event reads within microseconds), and its counters. With `device`
 a CUDA device, the counter `allocations` is the change of that device's
 caching-allocator `allocation.all.allocated` (the tensors it handed out)
-over the span, read outside the span's own range and clock.
+over the span, read outside the span's own range and clock. The code inside
+a span may set counters of its own (`counter`), such as `graph_replays` of
+`train.step`.
 
 The parent stack is per thread; the buffer is shared, holds at most `CAP`
 records and counts those it drops (`dropped()`). `records()` returns the
@@ -69,6 +71,9 @@ class _Off:
     def __exit__(self, *exc):
         return False
 
+    def counter(self, name: str, value: int) -> None:
+        pass
+
 
 OFF = _Off()
 
@@ -81,7 +86,7 @@ def _allocations(device: torch.device) -> int:
 
 class _Span:
     __slots__ = ("name", "device", "id", "parent", "top", "t0", "a0", "rf",
-                 "stack")
+                 "stack", "counters")
 
     def __init__(self, name: str, device: Optional[torch.device]):
         self.name = name
@@ -99,6 +104,7 @@ class _Span:
         else:
             self.parent, self.top = 0, self.id
         stack.append(self)
+        self.counters = {}
         if self.device is not None:
             self.a0 = _allocations(self.device)
         self.rf = torch._C._profiler._RecordFunctionFast(self.name)
@@ -109,13 +115,17 @@ class _Span:
     def __exit__(self, *exc):
         t1 = time.time_ns()
         self.rf.__exit__(*exc)
-        counters = {}
         if self.device is not None:
-            counters["allocations"] = _allocations(self.device) - self.a0
+            self.counters["allocations"] = (_allocations(self.device)
+                                            - self.a0)
         self.stack.pop()
         _append(Record(self.name, self.id, self.parent, self.top,
-                       threading.get_ident(), self.t0, t1, counters))
+                       threading.get_ident(), self.t0, t1, self.counters))
         return False
+
+    def counter(self, name: str, value: int) -> None:
+        """Set the span's counter `name` to `value`."""
+        self.counters[name] = value
 
 
 def _append(rec: Record) -> None:

@@ -49,6 +49,7 @@ from omni_pq_torch.models.transformer import dropout
 from omni_pq_torch.train import (AdamW, OptimizerConfig, TrainFlags,
                                  TrainState, batch_to_tensors, make_eval_step,
                                  make_train_step, warmup_cosine)
+from omni_pq_torch.train.state import StepScalars
 from tests.test_torch_port_modules import port_config, randomised_variables
 from tests.util import TINY
 
@@ -252,7 +253,7 @@ def test_optimizer_matches_optax_on_the_same_gradients(step_freq, warmup):
     for ga, gb in grads:
         model.backbone.w.grad = torch.from_numpy(ga)
         model.decoder_layer0.w.grad = torch.from_numpy(gb)
-        opt.step()
+        opt.step(StepScalars.holding(opt.step_values(), "cpu"))
     assert opt.count == 3
     np.testing.assert_allclose(_np(model.backbone.w),
                                jstate.params["backbone"]["w"], rtol=0,
@@ -278,8 +279,10 @@ def test_ema_update_matches_jax():
              "decoder_layer0": {"w": jnp.asarray(gb)}}).ema_update(0.9)
         state.model.backbone.w.grad = torch.from_numpy(ga)
         state.model.decoder_layer0.w.grad = torch.from_numpy(gb)
-        state.apply_gradients()
-        state.ema_update(0.9)
+        state.apply_gradients(StepScalars.holding(
+            state.optimizer.step_values(), "cpu"))
+        state.ema_update(0.9, StepScalars.holding(
+            state.ema_values(0.9, state.step), "cpu"))
     assert state.step == int(jstate.step) == 3
     np.testing.assert_allclose(_np(state.ema_model.backbone.w),
                                jstate.ema_params["backbone"]["w"], atol=1e-6)
