@@ -18,6 +18,10 @@ against the reference in float64, the program against that, and, after
 the first step alone, the share of parameters whose update differs in sign
 between each pair and each side's supervised loss terms. One JSON line a
 reading on standard output (and appended to `--out`).
+
+Every reading goes through the cell's model (`harness.find_model`): the
+program's `System`, and the check's `control_eval`, `reference_readings`,
+`judge_train` and `reference_first_update`.
 """
 import argparse
 import json
@@ -43,48 +47,36 @@ def program_numbers(cell, seed, seconds, device):
 
 def upper_numbers(cell, seed, device, what):
     from portbench import check, harness
+    ref = cell.model.check  # the model's weights and comparison
     pool = harness.make_pool(cell.traffic, seed, device)
     if cell.traffic["kind"] == "eval":
-        return check.control_eval(cell.cfg, seed, device,
+        return ref.control_eval(cell.cfg, seed, device,
                                   pool[0]["point_clouds"])
     batches = [pool[k % len(pool)] for k in range(harness.CHECK_STEPS)]
     with check.tf32(False):
-        want = check.reference_readings(cell.cfg, cell.traffic, seed, device,
+        want = ref.reference_readings(cell.cfg, cell.traffic, seed, device,
                                         batches)
-        got = check.reference_readings(
+        got = ref.reference_readings(
             cell.cfg, cell.traffic, seed, device, batches,
             low=what == "control", fault="half" if what == "half" else None)
-    return check.judge_train(got, want)
-
-
-# the reference's supervised loss terms under the program's stats names
-PROGRAM_PARTS = {"vote": "vote_loss", "objectness": "objectness_loss",
-                 "box": "box_loss", "sem": "sem_cls_loss_sum",
-                 "quad_score": "quad_score_loss_sum",
-                 "quad_geometry": "quad_loss_sum",
-                 "pc": "physical_constraints_loss"}
-
-
-def first_update(params_after: dict, initial: dict):
-    import torch
-    return torch.cat([(p.detach().double() - initial[n].double()).flatten()
-                      for n, p in sorted(params_after.items())])
+    return ref.judge_train(got, want)
 
 
 def witness(cell, seed, device):
     """Readings of sound runs against each other (see the docstring)."""
     import torch
     from portbench import check, harness
+    ref = cell.model.check  # the model's weights and comparison
     pool = harness.make_pool(cell.traffic, seed, device)
     batches = [pool[k % len(pool)] for k in range(harness.CHECK_STEPS)]
     runs, updates, parts = {}, {}, {}
     for name in ("program", "program_again"):
         prog = harness.Program(cell, seed, device, pool)
-        initial = {k: v.clone() for k, v in prog.initial.items()}
+        initial = {k: v.clone() for k, v in prog.system.initial.items()}
         stats = prog.call()
-        parts[name] = {k: float(stats[v]) for k, v in PROGRAM_PARTS.items()}
-        updates[name] = first_update(dict(prog.model.named_parameters()),
-                                     initial)
+        parts[name] = prog.system.parts(stats)
+        updates[name] = check.first_update(
+            dict(prog.system.model.named_parameters()), initial)
         prog.free()
         prog = harness.Program(cell, seed, device, pool)
         runs[name] = prog.first_steps()
@@ -93,10 +85,10 @@ def witness(cell, seed, device):
     with check.tf32(False):
         for name, f64 in (("reference", False), ("reference_again", False),
                           ("float64", True)):
-            runs[name] = check.reference_readings(
+            runs[name] = ref.reference_readings(
                 cell.cfg, cell.traffic, seed, device, batches, float64=f64)
-            updates[name], parts[name] = reference_first_update(
-                cell, seed, device, batches[0], f64)
+            updates[name], parts[name] = ref.reference_first_update(
+                cell.cfg, cell.traffic, seed, device, batches[0], f64)
     out = []
     for got, want in (("program", "reference"),
                       ("program_again", "program"),
@@ -107,31 +99,12 @@ def witness(cell, seed, device):
         rel = float(torch.linalg.vector_norm(a - b)
                     / torch.linalg.vector_norm(b))
         out.append({"what": f"{got} vs {want}", "seed": seed,
-                    "numbers": check.judge_train(runs[got], runs[want]),
+                    "numbers": ref.judge_train(runs[got], runs[want]),
                     "first_update_sign_flips": flips,
                     "first_update_rel_gap": rel,
                     "first_step_parts": [parts[got], parts[want]],
                     "losses": [runs[got]["losses"], runs[want]["losses"]]})
     return out
-
-
-def reference_first_update(cell, seed, device, entry, f64):
-    """The reference's parameter update of the first step alone."""
-    from portbench import check, harness, weights
-    from portbench.reference.train import Trainer
-    import torch
-    cfg = {**cell.cfg, "compute_dtype": "float64"} if f64 else cell.cfg
-    model = weights.reference_model(cfg, seed, device)
-    trainer = Trainer(model, cell.traffic["optimizer"], cell.traffic["flags"])
-    gen = torch.Generator(device=device).manual_seed(
-        harness.sub_seed(seed, 3))
-    initial = {n: p.detach().clone() for n, p in model.named_parameters()}
-    lab, weak = entry["labeled"], entry.get("weak")
-    if f64:
-        lab, weak = check.as_double(lab), check.as_double(weak)
-    trainer.step(lab, weak, gen, cell.traffic["consistency_weight"])
-    return (first_update(dict(model.named_parameters()), initial),
-            {k: float(v) for k, v in trainer.parts.items()})
 
 
 def main(argv=None) -> int:

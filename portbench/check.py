@@ -1,51 +1,25 @@
-"""The comparison that decides `correct`: what the timed path produced,
-held against the plain reference (`reference/`), which makes the same
-weights from the seed and reads the same rooms; and the readings of the
-control (the reference in the precision below the configuration's) and
-of the faults, which `calibrate.py` takes to set the limits.
+"""What every model's comparison with its plain reference shares: the
+relative gap of two tensors, the TF32 and bfloat16-sum switches, the
+half-batch fault, the norms of each leaf and of each leaf's change, the
+generator's digest, and the gap arithmetic over leaves. Each model's own
+check (`reference/<model>_check.py`, found through `harness.find_model`)
+makes its weights and its reference, computes the numbers that its cells'
+`limits/*.json` name, and uses these. Nothing here imports the program.
 
-Eval cells: the output of one call of the window (drawn from the seed),
-all 16 rooms. Stage A, the backbone and the voting, is recomputed from the
-rooms: `index_mismatch` counts the sampling indices that differ (sa1,
-sa2, the seeds: exact), `stage_a_gap` is the largest gap of the floating
-end points (sa1-sa4 coordinates and features, the FP2 seed features, the
-votes), each as max|program - reference| over max|reference|. Stage B, the
-vote aggregation, the quad queries and the decoder with its heads, is
-recomputed twice. `stage_b_own_gap` runs it from the reference's own
-stage A, so that the reference takes nothing the program made.
-`stage_b_gap` runs it from the program's seeds and votes, which stage A
-has judged: its sampling then takes the same points on both sides, where
-votes a rounding apart could pick another point at a near-tie and show as
-a fault that is none. Each is the largest gap of stage B's end points;
-`pred_size` keys (a gather at the argmax of the size scores, which are
-compared) are left out. PERF.md says which a cell compares.
-
-Train cells: the first CHECK_STEPS steps of the program, through the
-window's call on the pool's first batches, against the same steps of the
-reference with the same generator draws: `loss_gap` the largest relative
-gap of a step's total loss; `grad_gap` and `change_gap` by the worst leaf,
-| |program| - |reference| | over the larger of the reference leaf's norm
-and the median leaf's: the first gradient as AdamW got it, and the change
-after the last step of the student's and the teacher's parameters and
-their BatchNorm running statistics. Parameter leaves whose reference
-gradient is under a thousandth of the median leaf's move by round-off
-under Adam (a key's bias under softmax) and are left out of the change.
+Train numbers by the worst leaf: | |program| - |reference| | over the larger
+of the reference leaf's norm and the median leaf's (`leaf_gaps`);
+parameter leaves whose reference gradient is under ROUNDOFF_LEAF of the
+median leaf's move by round-off under Adam (a key's bias under softmax)
+and are left out of the change (`change_gaps`' `moving`).
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 from typing import Dict, List, Mapping, Optional
 
 import torch
 
-from . import weights
-from .reference.pq_transformer import STAGE_A_INPUTS
-from .reference.train import Trainer
-
-STAGE_A_FLOAT = tuple([f"sa{i}_{k}" for i in range(1, 5)
-                       for k in ("xyz", "features")]
-                      + ["fp2_features", "vote_xyz", "vote_features"])
-INDEX_KEYS = ("sa1_inds", "sa2_inds", "fp2_inds")
 ROUNDOFF_LEAF = 1e-3
 
 
@@ -73,47 +47,6 @@ def bf16_sums_in_f32():
     m.allow_bf16_reduced_precision_reduction = False
 
 
-# --- eval -----------------------------------------------------------------
-
-@torch.no_grad()
-def judge_eval(ref, clouds: torch.Tensor, out: Mapping) -> Dict[str, float]:
-    a = ref.forward_stage_a(clouds)
-    numbers = {"index_mismatch": float(sum(
-        int((a[k].long() != out[k].long()).sum()) for k in INDEX_KEYS)),
-        "stage_a_gap": max(rel_gap(out[k], a[k]) for k in STAGE_A_FLOAT)}
-    for name, inputs in (("stage_b_own_gap", a), ("stage_b_gap", out)):
-        b = ref.forward_heads({k: inputs[k] for k in STAGE_A_INPUTS})
-        numbers[name] = max(
-            rel_gap(out[k], v) for k, v in b.items()
-            if v.is_floating_point() and not k.endswith("pred_size"))
-        del b
-    return numbers
-
-
-def check_eval(cfg: Dict, seed: int, device, clouds, out) -> Dict[str, float]:
-    bf16_sums_in_f32()
-    with tf32(False):
-        ref = weights.reference_model(cfg, seed, device)
-        return judge_eval(ref, clouds, out)
-
-
-@torch.no_grad()
-def control_eval(cfg: Dict, seed: int, device, clouds) -> Dict[str, float]:
-    """The control put in the program's place: the reference in the
-    precision below the configuration's (`cfg['control']`: "tf32", float32
-    products on TF32; "fp8", every product's operands in float8 e4m3)."""
-    bf16_sums_in_f32()
-    low = weights.reference_model(cfg, seed, device,
-                                  low=cfg["control"] == "fp8")
-    with tf32(cfg["control"] == "tf32"):
-        out = low.forward_stage_a(clouds)
-        out.update(low.forward_heads(out))
-    del low
-    return check_eval(cfg, seed, device, clouds, out)
-
-
-# --- train ----------------------------------------------------------------
-
 def half(batch: Optional[Mapping]) -> Optional[Dict]:
     """The fault 'half of the batch left out': the batch's first
     B - B // 2 rows."""
@@ -130,114 +63,70 @@ def as_double(batch: Optional[Mapping]) -> Optional[Dict]:
             for k, v in batch.items()}
 
 
-def reference_readings(cfg: Dict, traffic: Dict, seed: int, device,
-                       batches: List[Mapping], low: bool = False,
-                       fault: Optional[str] = None,
-                       float64: bool = False) -> Dict:
-    """The reference's first steps on `batches` with the run's generator
-    seed: each step's loss, the first clipped gradient by leaf, the change
-    after the first step and after the last, the generator's state after
-    each step. `low`: the control; `fault` "half": the half-batch fault;
-    `float64`: every product and sum in float64 (a witness, not a check)."""
-    from .harness import generator_state, state_change, leaf_norms, sub_seed
-    bf16_sums_in_f32()
-    flags = traffic["flags"]
-    for off in ("arkit", "use_fitted_mixture", "teacher_bf16"):
-        if flags.get(off):
-            raise ValueError(f"the reference has no {off}")
-    if float64:
-        cfg = {**cfg, "compute_dtype": "float64"}
-    model = weights.reference_model(
-        cfg, seed, device, low=low and cfg["control"] == "fp8")
-    trainer = Trainer(model, traffic["optimizer"], flags)
-    gen = torch.Generator(device=device).manual_seed(sub_seed(seed, 3))
-    initial = {k: v.clone() for k, v in model.state_dict().items()}
-    losses, grad, first_change, draws = [], None, None, []
-    with tf32(low and cfg["control"] == "tf32"):
-        for k, entry in enumerate(batches):
-            lab, weak = entry["labeled"], entry.get("weak")
-            if fault == "half":
-                lab, weak = half(lab), half(weak)
-            if float64:
-                lab, weak = as_double(lab), as_double(weak)
-            losses.append(trainer.step(lab, weak, gen,
-                                       traffic["consistency_weight"]))
-            draws.append(generator_state(gen))
-            if k == 0:
-                first_vote = float(trainer.parts["vote"])
-                grad = leaf_norms(trainer.clipped_grads)
-                with torch.no_grad():
-                    first_change = state_change(model, trainer.teacher,
-                                                initial)
-    with torch.no_grad():
-        change = state_change(model, trainer.teacher, initial)
-    return {"losses": losses, "grad": grad, "change": change,
-            "first_change": first_change, "draws": draws,
-            "first_vote_loss": first_vote}
+# --- train: the readings of both sides ------------------------------------
+
+def leaf_norms(tensors: Dict) -> Dict[str, float]:
+    names = list(tensors)
+    if not names:
+        return {}
+    norms = torch.stack([torch.linalg.vector_norm(tensors[n].double())
+                         for n in names]).cpu().tolist()
+    return dict(zip(names, norms))
 
 
-def _median(values) -> float:
+def generator_state(gen) -> str:
+    """A digest of a generator's state: equal after two runs of steps
+    exactly when they drew the same amounts in the same order."""
+    return hashlib.sha256(gen.get_state().numpy().tobytes()).hexdigest()
+
+
+def state_change(model, teacher, initial: Dict) -> Dict[str, Dict]:
+    """Norms of each leaf's change from `initial`: the student's and the
+    teacher's parameters, and their BatchNorm running statistics."""
+    out = {}
+    for side, m in (("student", model), ("teacher", teacher)):
+        if m is None:
+            continue
+        out[f"{side}.params"] = leaf_norms(
+            {n: p.detach() - initial[n] for n, p in m.named_parameters()})
+        out[f"{side}.bn"] = leaf_norms(
+            {n: b - initial[n] for n, b in m.named_buffers()
+             if n.endswith(("running_mean", "running_var"))})
+    return out
+
+
+def first_update(params_after: Dict, initial: Dict) -> torch.Tensor:
+    """Every parameter's change from `initial`, flat, in float64, in the
+    parameters' sorted order (`calibrate.py`'s witness)."""
+    return torch.cat([(p.detach().double() - initial[n].double()).flatten()
+                      for n, p in sorted(params_after.items())])
+
+
+# --- train: the gaps ------------------------------------------------------
+
+def median(values) -> float:
     v = sorted(values)
     return v[len(v) // 2] if len(v) % 2 else 0.5 * (v[len(v) // 2 - 1]
                                                     + v[len(v) // 2])
 
 
-def _leaf_gaps(got: Dict[str, float], want: Dict[str, float],
-               leaves) -> List[float]:
+def leaf_gaps(got: Dict[str, float], want: Dict[str, float],
+              leaves) -> List[float]:
     leaves = list(leaves)
     if not leaves:
         return [0.0]
-    med = _median([want[n] for n in leaves])
+    med = median([want[n] for n in leaves])
     return [abs(got[n] - want[n]) / max(want[n], med, 1e-30)
             for n in leaves]
 
 
-def _change_gaps(got: Dict, want: Dict, moving) -> tuple:
+def change_gaps(got: Dict, want: Dict, moving) -> tuple:
     """The worst and the median leaf's change gap, each the largest over
     the groups (student, teacher; parameters, BatchNorm statistics)."""
-    worst, median = 0.0, 0.0
+    worst, med = 0.0, 0.0
     for group, ref in want.items():
         leaves = ref if group.endswith(".bn") else [n for n in ref
                                                      if n in moving]
-        gaps = _leaf_gaps(got[group], ref, leaves)
-        worst, median = max(worst, max(gaps)), max(median, _median(gaps))
-    return worst, median
-
-
-def judge_train(got: Dict, want: Dict) -> Dict[str, float]:
-    """Every number a train cell may compare; its limits file names those
-    it does. `first_loss_gap` is the first step's alone, `loss_gap` the
-    largest over the steps, `first_vote_loss_gap` the first step's vote
-    loss (the backbone and the voting, before any sampling of votes or
-    threshold on them); `first_change_gap` the worst leaf's change
-    after the first step, `change_gap` after the last, and
-    `median_change_gap` the median leaf's then; `median_grad_gap` the
-    median leaf's gradient gap; `draws_mismatch` the steps after which the
-    generator's state differs. PERF.md says which are steady enough to
-    compare: the later steps carry the noise of the rounding."""
-    loss = [abs(g - w) / max(abs(w), 1e-30)
-            for g, w in zip(got["losses"], want["losses"])]
-    g_med = _median(want["grad"].values())
-    moving = {n for n, v in want["grad"].items()
-              if v >= ROUNDOFF_LEAF * g_med}
-    change, median_change = _change_gaps(got["change"], want["change"],
-                                         moving)
-    first_change, _ = _change_gaps(got["first_change"],
-                                   want["first_change"], moving)
-    grad = _leaf_gaps(got["grad"], want["grad"], want["grad"])
-    vote = abs(got["first_vote_loss"] - want["first_vote_loss"]) / max(
-        abs(want["first_vote_loss"]), 1e-30)
-    return {"loss_gap": max(loss), "first_loss_gap": loss[0],
-            "first_vote_loss_gap": vote,
-            "grad_gap": max(grad), "median_grad_gap": _median(grad),
-            "first_change_gap": first_change, "change_gap": change,
-            "median_change_gap": median_change,
-            "draws_mismatch": float(sum(
-                a != b for a, b in zip(got["draws"], want["draws"])))}
-
-
-def check_train(cfg: Dict, traffic: Dict, seed: int, device,
-                batches: List[Mapping], got: Dict) -> Dict[str, float]:
-    with tf32(False):
-        want = reference_readings(cfg, traffic, seed, device, batches)
-    return judge_train(got, want)
+        gaps = leaf_gaps(got[group], ref, leaves)
+        worst, med = max(worst, max(gaps)), max(med, median(gaps))
+    return worst, med

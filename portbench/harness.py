@@ -1,14 +1,25 @@
 """The benchmark harness: one run of one cell of `BENCHMARK.json`.
 
-Everything that belongs to one configuration, traffic mix or metric is a
-file found by its name:
-  - `configs/<config>.json`: the configuration as it is run (the port's
-    `ModelConfig` fields, and `tf32`);
+Everything that belongs to one configuration, traffic mix, metric or model
+is a file found by its name:
+  - `configs/<config>.json`: the configuration as it is run (the model's
+    sizes, `compute_dtype`, `tf32`, and `model`, the name of its model:
+    "pq_transformer" where the key is absent);
+  - the model's files (`find_model`): `models/<model>.py`, its program
+    side, the only benchmark code besides this file that reaches the
+    program (`omni_pq_torch`): the traffic kinds it serves (`KINDS`), the
+    batch of each forward in a call (`forwards_per_call`) and `System`, the
+    program built from the seeded state_dict through its own entry point,
+    with its timed call; `reference/<model>_check.py`, its weights
+    (`state_dict`) and its comparison with the plain reference
+    (`check_eval`, `control_eval`, and for a model that trains
+    `check_train`, `reference_readings`, `judge_train`), which imports
+    nothing of the program; `counts/<model>.py`, its model FLOPs and its
+    kernels' least times (`readers.py`);
   - `traffic/<mix>.json`: the traffic, read by the one generator here:
-    `kind` "eval" (closed loop of `infer.eval_forward` on batches of
-    `batch` rooms) or "train" (closed loop of the step of
-    `train.step.make_train_step` on `labeled` + `weak` rooms with the
-    `flags`, `consistency_weight` and `optimizer` given), `pool` distinct
+    `kind` "eval" (closed loop of the model's eval call on batches of
+    `batch` rooms) or "train" (closed loop of its train step on `labeled`
+    + `weak` rooms, with what else the model's step reads), `pool` distinct
     batches made from the seed and cycled, `num_points` a room;
   - `metrics/<metric>.py`: each metric's reader, `read(ctx)` -> a number or
     None (nothing to read in this cell);
@@ -42,6 +53,10 @@ import numpy as np
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "omni_pq_tpu")
+DEFAULT_MODEL = "pq_transformer"
+# a model's files under the benchmark's folder, by the part they play
+MODEL_FILES = {"program": "models/{}.py", "check": "reference/{}_check.py",
+               "counts": "counts/{}.py"}
 TRACE_CALLS = {"eval": 10, "train": 3}
 CHECK_STEPS = 3      # train: the first steps that the reference follows
 
@@ -56,6 +71,15 @@ def sub_seed(seed: int, stream: int) -> int:
 # --- the spec: BENCHMARK.json and the files it names ----------------------
 
 @dataclasses.dataclass
+class Model:
+    """A model's three files, loaded: `program`, `check`, `counts`."""
+    name: str
+    program: object
+    check: object
+    counts: object
+
+
+@dataclasses.dataclass
 class Cell:
     name: str
     cfg: Dict                 # the configuration file's dict
@@ -64,6 +88,7 @@ class Cell:
     end_to_end: List[Dict]
     per_layer: List[Dict]
     limits: Dict[str, float]
+    model: Model
 
 
 def load_spec(root: Path = ROOT) -> Dict:
@@ -88,36 +113,52 @@ def find_cell(spec: Dict, workload: str, root: Path = ROOT) -> Cell:
     names = {m["name"] for m in e2e}
     per_layer = [m for m in spec["per_layer"] if _reports(m, workload, names)]
     bench = root / BENCH.name
-    return Cell(name=workload,
-                cfg=json.loads((root / conf["file"]).read_text()),
-                traffic=json.loads((bench / "traffic"
-                                    / f"{w['traffic']}.json").read_text()),
-                chips=w["chips"], end_to_end=e2e, per_layer=per_layer,
+    cfg = json.loads((root / conf["file"]).read_text())
+    traffic = json.loads((bench / "traffic"
+                          / f"{w['traffic']}.json").read_text())
+    model = find_model(cfg.get("model", DEFAULT_MODEL), root)
+    if traffic["kind"] not in model.program.KINDS:
+        raise SystemExit(
+            f"workload {workload!r}: model {model.name!r} serves no "
+            f"{traffic['kind']!r} traffic (traffic {w['traffic']!r}); it "
+            f"serves {list(model.program.KINDS)}")
+    return Cell(name=workload, cfg=cfg, traffic=traffic, chips=w["chips"],
+                end_to_end=e2e, per_layer=per_layer,
                 limits=json.loads((bench / "limits"
-                                   / f"{workload}.json").read_text()))
+                                   / f"{workload}.json").read_text()),
+                model=model)
+
+
+def find_model(name: str, root: Path = ROOT) -> Model:
+    """A model's files (MODEL_FILES), loaded; refused, before any set-up,
+    where one is missing."""
+    paths = {part: root / BENCH.name / f.format(name)
+             for part, f in MODEL_FILES.items()}
+    missing = [str(p.relative_to(root)) for p in paths.values()
+               if not p.is_file()]
+    if missing:
+        raise SystemExit(f"model {name!r} has no {', '.join(missing)}")
+    return Model(name, **{part: load_file(p, f"portbench_{part}_{name}")
+                          for part, p in paths.items()})
+
+
+def load_file(path: Path, module_name: str):
+    """The module in `path`, loaded under `module_name` (the benchmark's
+    files that a cell finds by name: a model's, a metric's reader)."""
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_reader(metric: str, root: Path = ROOT):
     """The reader of a metric: `metrics/<metric>.py`'s `read`."""
-    path = root / BENCH.name / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + metric.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_file(root / BENCH.name / "metrics" / f"{metric}.py",
+                     "portbench_metric_"
+                     + metric.replace(".", "_").replace("-", "_")).read
 
 
 # --- the program side -----------------------------------------------------
-
-def model_fields(cfg: Dict) -> Dict:
-    """The configuration's ModelConfig fields (tuples where the dataclass
-    holds tuples)."""
-    from omni_pq_torch.config import ModelConfig
-    names = {f.name for f in dataclasses.fields(ModelConfig)}
-    return {k: tuple(v) if isinstance(v, list) else v
-            for k, v in cfg.items() if k in names}
-
 
 def make_pool(traffic: Dict, seed: int, device) -> List[Dict]:
     """`pool` batches of rooms from the seed (the frozen generator), as
@@ -164,92 +205,33 @@ class Window:
 
 
 class Program:
-    """The system under test on one cell: the port's model (and, for a
-    train cell, its TrainState and step), fed from the pool."""
+    """The system under test on one cell: the model's `System` (its
+    program side, built from the seed's weights), fed from the pool."""
 
     def __init__(self, cell: Cell, seed: int, device, pool, fault=None,
                  marks=None):
-        import torch
-        from . import weights
-        from omni_pq_torch import infer
-        from omni_pq_torch.config import ModelConfig
         self.cell, self.device, self.pool = cell, device, pool
         self.kind = cell.traffic["kind"]
-        self.mc = ModelConfig(**model_fields(cell.cfg))
         marks = [] if marks is None else marks
-        sd = weights.state_dict(cell.cfg, seed, device)
+        sd = cell.model.check.state_dict(cell.cfg, seed, device)
         sync(device)
         marks.append(("weights", time.perf_counter()))
-        self.model = infer.load_model(sd, self.mc, device)
-        sync(device)
-        marks.append(("model", time.perf_counter()))
-        self.fault = fault
+        self.system = cell.model.program.System(cell, seed, device, sd,
+                                                fault, marks)
         self.i = 0
-        if self.kind == "train":
-            from omni_pq_torch.config import DatasetConfig
-            from omni_pq_torch.train.state import OptimizerConfig, TrainState
-            from omni_pq_torch.train.step import TrainFlags, make_train_step
-            flags = TrainFlags(**cell.traffic["flags"])
-            self.state = TrainState(
-                self.model, OptimizerConfig(**cell.traffic["optimizer"]),
-                ema=flags.ema)
-            self.step_fn = make_train_step(self.model, self.mc,
-                                           DatasetConfig().mean_size_arr,
-                                           flags)
-            self.gen = torch.Generator(device=device).manual_seed(
-                sub_seed(seed, 3))
-            self.initial = {k: v.detach().clone() for k, v in sd.items()}
-            marks.append(("train state", time.perf_counter()))
         del sd
 
     # one call of the timed entry point
     def call(self):
-        from omni_pq_torch import infer
         entry = self.pool[self.i % len(self.pool)]
         self.i += 1
-        if self.kind == "eval":
-            pc = entry["point_clouds"]
-            if self.fault is not None:
-                return self.fault(infer.eval_forward, self.model, pc)
-            return infer.eval_forward(self.model, pc)
-        labeled, weak = entry["labeled"], entry.get("weak")
-        step = self.step_fn
-        if self.fault is not None:
-            return self.fault(step, self.state, labeled, weak, self.gen,
-                              self.cell.traffic["consistency_weight"])
-        return step(self.state, labeled, weak, self.gen,
-                    self.cell.traffic["consistency_weight"])
+        return self.system.call(entry)
 
     def first_steps(self) -> Dict:
         """Train: the first CHECK_STEPS steps through the window's own call,
-        with the readings the reference is held to: each step's loss (and
-        the first step's vote loss, which no sampling of votes reaches), each
-        leaf's first gradient as AdamW got it (mu / (1 - b1) after one
-        step), each leaf's change after the first step and after the last
-        (student and teacher parameters, BatchNorm running statistics), and
-        the generator's state after each step."""
-        import torch
-        losses, grad, first_change, draws = [], None, None, []
-        for k in range(CHECK_STEPS):
-            stats = self.call()
-            losses.append(float(stats["total_loss"]))
-            draws.append(generator_state(self.gen))
-            if k == 0:
-                first_vote = float(stats["vote_loss"])
-                opt = self.state.optimizer
-                grad = leaf_norms({n: opt.state[p]["mu"] / 0.1
-                                   for n, p in self.model.named_parameters()
-                                   if "mu" in opt.state[p]})
-                with torch.no_grad():
-                    first_change = state_change(
-                        self.model, self.state.ema_model, self.initial)
-        with torch.no_grad():
-            change = state_change(self.model, self.state.ema_model,
-                                  self.initial)
-        del self.initial
-        return {"losses": losses, "grad": grad, "change": change,
-                "first_change": first_change, "draws": draws,
-                "first_vote_loss": first_vote}
+        with the readings the reference is held to (the model's
+        `System.first_steps`)."""
+        return self.system.first_steps(self.call)
 
     def warm(self) -> Optional[Dict]:
         """Run every shape of the cell once before the window; for a train
@@ -293,7 +275,7 @@ class Program:
         else:
             losses = []
             while w.calls == 0 or time.perf_counter() - t0 < seconds:
-                losses.append(self.call()["total_loss"])
+                losses.append(self.system.loss(self.call()))
                 w.calls += 1
             sync(dev)
             w.failed = int((~torch.isfinite(torch.stack(losses))).sum())
@@ -304,9 +286,11 @@ class Program:
         return w, kept
 
     def free(self):
-        for name in ("model", "state", "step_fn", "pool", "gen"):
-            if hasattr(self, name):
-                delattr(self, name)
+        if hasattr(self, "system"):
+            self.system.free()
+            del self.system
+        if hasattr(self, "pool"):
+            del self.pool
 
 
 def scenes_per_call(traffic: Dict) -> int:
@@ -320,38 +304,6 @@ def sync(device):
     import torch
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-
-
-def leaf_norms(tensors: Dict) -> Dict[str, float]:
-    import torch
-    names = list(tensors)
-    if not names:
-        return {}
-    norms = torch.stack([torch.linalg.vector_norm(tensors[n].double())
-                         for n in names]).cpu().tolist()
-    return dict(zip(names, norms))
-
-
-def generator_state(gen) -> str:
-    """A digest of a generator's state: equal after two runs of steps
-    exactly when they drew the same amounts in the same order."""
-    import hashlib
-    return hashlib.sha256(gen.get_state().numpy().tobytes()).hexdigest()
-
-
-def state_change(model, teacher, initial: Dict) -> Dict[str, Dict]:
-    """Norms of each leaf's change from `initial`: the student's and the
-    teacher's parameters, and their BatchNorm running statistics."""
-    out = {}
-    for side, m in (("student", model), ("teacher", teacher)):
-        if m is None:
-            continue
-        out[f"{side}.params"] = leaf_norms(
-            {n: p.detach() - initial[n] for n, p in m.named_parameters()})
-        out[f"{side}.bn"] = leaf_norms(
-            {n: b - initial[n] for n, b in m.named_buffers()
-             if n.endswith(("running_mean", "running_var"))})
-    return out
 
 
 # --- the run --------------------------------------------------------------
@@ -380,7 +332,6 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool,
     """Set-up, the window, the traced window, then the check once the
     program's state is freed: every number the comparison computes."""
     import torch
-    from . import check as checker
     torch.backends.cuda.matmul.allow_tf32 = bool(cell.cfg["tf32"])
     torch.backends.cudnn.allow_tf32 = bool(cell.cfg["tf32"])
     marks = [("imports", time.perf_counter())]
@@ -413,14 +364,15 @@ def measure(cell: Cell, seed: int, seconds: float, trace: bool,
         prog.free()
         del pool, kept
         gc.collect()
-        numbers = checker.check_eval(cell.cfg, seed, device, clouds, out)
+        numbers = cell.model.check.check_eval(cell.cfg, seed, device, clouds,
+                                              out)
     else:
         batches = [pool[k % len(pool)] for k in range(CHECK_STEPS)]
         prog.free()
         del pool
         gc.collect()
-        numbers = checker.check_train(cell.cfg, cell.traffic, seed, device,
-                                      batches, readings)
+        numbers = cell.model.check.check_train(cell.cfg, cell.traffic, seed,
+                                               device, batches, readings)
     return {"setup_s": setup_s, "window": win, "trace": tr, "device": dev,
             "numbers": numbers}
 
@@ -481,12 +433,9 @@ class Context:
 
     @property
     def forwards_per_call(self) -> List[int]:
-        """The batch of each model forward in one call: a train step with
-        an EMA teacher runs two."""
-        t = self.cell.traffic
-        if self.kind == "eval":
-            return [t["batch"]]
-        return [self.batch] * (2 if t["flags"].get("ema", True) else 1)
+        """The batch of each model forward in one call (the model's
+        `forwards_per_call`)."""
+        return self.cell.model.program.forwards_per_call(self.cell.traffic)
 
 
 def p95(values: List[float]) -> float:

@@ -1,10 +1,14 @@
 """What the metrics' readers (`metrics/<name>.py`) share. Each reader
 takes the run's `harness.Context` and returns a number, or None where the
 cell gives it nothing to read (a share of a roofline or a peak is never
-reported as 0)."""
+reported as 0). The counts are the cell's model's (`counts/<model>.py`):
+`forward_flops(cfg, B)`, `step_flops(cfg, B, teacher)`, and the least time
+in one forward of B clouds of the point kernels,
+`point_kernels_bound_s(cfg, B)`, and of the fused SA-MLP kernel,
+`fused_mlp_bound_s(cfg, B, train)`; a bound is None where the model's
+forward at `cfg` runs none of the kernel, and its roofline reads nothing."""
 from __future__ import annotations
 
-from .counts import fused_mlp, point_kernels, pq_transformer
 from .peaks import OPS_PER_S
 
 # the program's kernels as torch.profiler names them (chip_smoke.py's
@@ -21,29 +25,32 @@ def traced(ctx, kind: str) -> bool:
 
 def roofline(ctx, kind: str, bound_per_forward, pattern: str):
     """100 x the least time of the traced window's calls over the matching
-    kernels' device time; None where nothing matches."""
+    kernels' device time; None where nothing matches or the model has no
+    bound."""
     if not traced(ctx, kind):
+        return None
+    bounds = [bound_per_forward(b) for b in ctx.forwards_per_call]
+    if None in bounds:
         return None
     spent = ctx.trace.kernel_s(pattern)
     if spent <= 0:
         return None
-    bound = ctx.trace.calls * sum(bound_per_forward(b)
-                                  for b in ctx.forwards_per_call)
+    bound = ctx.trace.calls * sum(bounds)
     return 100.0 * bound / spent
 
 
 def point_kernels_roofline(ctx, kind: str):
+    counts, cfg = ctx.cell.model.counts, ctx.cell.cfg
     return roofline(ctx, kind,
-                    lambda b: point_kernels.forward_bound_s(ctx.cell.cfg, b),
+                    lambda b: counts.point_kernels_bound_s(cfg, b),
                     f"{FPS_KERNELS}|{BALL_QUERY_KERNELS}")
 
 
 def fused_mlp_roofline(ctx, kind: str):
-    if not ctx.cell.cfg.get("fused_sa"):
-        return None
+    counts, cfg = ctx.cell.model.counts, ctx.cell.cfg
     return roofline(ctx, kind,
-                    lambda b: fused_mlp.forward_bound_s(ctx.cell.cfg, b,
-                                                        kind == "train"),
+                    lambda b: counts.fused_mlp_bound_s(cfg, b,
+                                                       kind == "train"),
                     FUSED_MLP_KERNELS)
 
 
@@ -52,11 +59,11 @@ def mfu(ctx, kind: str):
     length, at the configuration's compute dtype's peak."""
     if ctx.kind != kind or ctx.trace is None or ctx.window.seconds <= 0:
         return None
-    cfg = ctx.cell.cfg
+    cfg, counts = ctx.cell.cfg, ctx.cell.model.counts
     if kind == "eval":
-        per_call = pq_transformer.forward_flops(cfg, ctx.batch)
+        per_call = counts.forward_flops(cfg, ctx.batch)
     else:
-        per_call = pq_transformer.step_flops(
+        per_call = counts.step_flops(
             cfg, ctx.batch, len(ctx.forwards_per_call) > 1)
     return 100.0 * per_call * ctx.window.calls / (
         ctx.window.seconds * OPS_PER_S[cfg["compute_dtype"]])

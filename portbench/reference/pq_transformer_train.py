@@ -28,7 +28,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from .losses import consistency_loss, gamma_criterion, supervised_loss
+from .pq_transformer_losses import (consistency_loss, gamma_criterion,
+                                    supervised_loss)
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 ETA_MIN = 1e-6

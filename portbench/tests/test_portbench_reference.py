@@ -7,7 +7,7 @@ import pytest
 import torch
 
 import pb_small
-from portbench import check, harness, weights
+from portbench import check, harness
 from portbench.reference.pq_transformer import STAGE_A_INPUTS
 
 SMALL = pb_small.SMALL
@@ -25,13 +25,14 @@ def test_eval_forward_matches_the_port(dtype):
     from omni_pq_torch import infer
     from omni_pq_torch.config import ModelConfig
     cell = small_cell("eval_b16.bf16", compute_dtype=dtype)
-    sd = weights.state_dict(cell.cfg, 5, "cpu")
-    prog = infer.load_model(sd, ModelConfig(**harness.model_fields(cell.cfg)),
-                            "cpu")
+    pq = cell.model
+    sd = pq.check.state_dict(cell.cfg, 5, "cpu")
+    prog = infer.load_model(
+        sd, ModelConfig(**pq.program.model_fields(cell.cfg)), "cpu")
     pool = harness.make_pool(dict(cell.traffic, batch=2, pool=1), 5, "cpu")
     pc = pool[0]["point_clouds"]
     out = infer.eval_forward(prog, pc)
-    ref = weights.reference_model(cell.cfg, 5, "cpu")
+    ref = pq.check.reference_model(cell.cfg, 5, "cpu")
     with torch.no_grad():
         a = ref.forward_stage_a(pc)
         b = ref.forward_heads({k: a[k] for k in STAGE_A_INPUTS})
@@ -46,9 +47,10 @@ def test_first_train_steps_match_the_port(workload):
     pool = harness.make_pool(cell.traffic, 9, "cpu")
     prog = harness.Program(cell, 9, "cpu", pool)
     got = prog.first_steps()
-    want = check.reference_readings(cell.cfg, cell.traffic, 9, "cpu",
-                                    pool[:harness.CHECK_STEPS])
-    numbers = check.judge_train(got, want)
+    ref = cell.model.check
+    want = ref.reference_readings(cell.cfg, cell.traffic, 9, "cpu",
+                                  pool[:harness.CHECK_STEPS])
+    numbers = ref.judge_train(got, want)
     assert numbers["first_loss_gap"] < 1e-6
     assert numbers["first_vote_loss_gap"] < 1e-6
     assert numbers["loss_gap"] < 1e-3
@@ -60,18 +62,20 @@ def test_first_train_steps_match_the_port(workload):
 def test_fp8_control_fails_the_bf16_eval_limits():
     cell = small_cell("eval_b16.bf16")
     pool = harness.make_pool(dict(cell.traffic, batch=2, pool=1), 3, "cpu")
-    numbers = check.control_eval(cell.cfg, 3, "cpu", pool[0]["point_clouds"])
+    numbers = cell.model.check.control_eval(cell.cfg, 3, "cpu",
+                                            pool[0]["point_clouds"])
     assert any(numbers[k] > limit for k, limit in cell.limits.items())
 
 
 def test_fp8_control_fails_the_bf16_train_limits():
     cell = small_cell("semi_3p3.bf16")
     pool = harness.make_pool(cell.traffic, 3, "cpu")
-    want = check.reference_readings(cell.cfg, cell.traffic, 3, "cpu",
-                                    pool[:harness.CHECK_STEPS])
-    got = check.reference_readings(cell.cfg, cell.traffic, 3, "cpu",
-                                   pool[:harness.CHECK_STEPS], low=True)
-    numbers = check.judge_train(got, want)
+    ref = cell.model.check
+    want = ref.reference_readings(cell.cfg, cell.traffic, 3, "cpu",
+                                  pool[:harness.CHECK_STEPS])
+    got = ref.reference_readings(cell.cfg, cell.traffic, 3, "cpu",
+                                 pool[:harness.CHECK_STEPS], low=True)
+    numbers = ref.judge_train(got, want)
     assert any(numbers[k] > limit for k, limit in cell.limits.items())
 
 
@@ -128,14 +132,15 @@ def test_tf32_control_fails_on_a_card(workload):
         pytest.skip("the TF32 control needs a CUDA card")
     cell = small_cell(workload, hidden_dim=288, dim_feedforward=2048, nhead=8)
     pool = harness.make_pool(dict(cell.traffic, batch=2), 3, "cuda")
+    ref = cell.model.check
     if cell.traffic["kind"] == "eval":
-        numbers = check.control_eval(cell.cfg, 3, "cuda",
-                                     pool[0]["point_clouds"])
+        numbers = ref.control_eval(cell.cfg, 3, "cuda",
+                                   pool[0]["point_clouds"])
     else:
         batches = pool[:harness.CHECK_STEPS]
-        want = check.reference_readings(cell.cfg, cell.traffic, 3, "cuda",
-                                        batches)
-        got = check.reference_readings(cell.cfg, cell.traffic, 3, "cuda",
-                                       batches, low=True)
-        numbers = check.judge_train(got, want)
+        want = ref.reference_readings(cell.cfg, cell.traffic, 3, "cuda",
+                                      batches)
+        got = ref.reference_readings(cell.cfg, cell.traffic, 3, "cuda",
+                                     batches, low=True)
+        numbers = ref.judge_train(got, want)
     assert any(numbers[k] > limit for k, limit in cell.limits.items())
