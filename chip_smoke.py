@@ -239,6 +239,22 @@ when every phase passed:
      bitwise (student and teacher parameters and buffers, AdamW moments
      and counts, the step, the generator); every record key is present
      and finite; B2 ran with TF32 on and the process has it off again.
+ 23. 3DETR-m (ThreeDETRConfig(fused_sa=True), the benchmark cell
+     eval_b16.3detr_m_f32fused's configuration) with random weights from
+     SEED on phase 3's clouds, B=16: the launch counts set to 0 just before
+     one eval forward and read just after: 3 FPS, 2 ball-query-group, 1
+     fused (the interim SA layer) and 3 radius-attention launches (one an
+     encoder layer); every key finite; no op returning a tensor that ends
+     in (N, N) for the encoder's 2048 or 1024 tokens (no dense logits,
+     softmax or mask); FPS and ball-query indices bitwise
+     the plain path's, the largest float gap printed. Then the
+     radius-attention kernel on that forward's own three calls (N 2048 at
+     r 0.16, N 1024 at 0.64 and 1.44; H 4, head size 64) against its
+     plain version within RADIUS_REL of its largest value; CUDA events,
+     the profiler's device time, the plain version's time and the bytes
+     floor (q, k, v and xyz read once, the output written once, over 3.35
+     TB/s); the share of pairs each radius keeps; ms/batch and peak
+     memory of the forward.
 The second-last line is the kernels JSON, the last the device JSON. Details
 go to chiprun_out/chip_smoke.json, chiprun_out/chip_smoke_profile.txt,
 chiprun_out/chip_smoke_train_profile.txt,
@@ -278,7 +294,8 @@ BQ_BOX_OPS = 18             # a box test: 6 sub, 6 max, 3 mul, 2 add, 1 compare
 KERNEL_NAMES = {"fps": r"::fps_kernel\b",
                 "ball_query": r"::(ball_query|chunk_box)_kernel\b",
                 "fused_mlp": r"::(fused_mlp(_bf16)?|mlp_pass(_bf16)?|mlp_stats"
-                             r"|mlp_pool)_kernel\b"}
+                             r"|mlp_pool)_kernel\b",
+                "radius_attention": r"::radius_attention\w*_kernel\b"}
 # fused SA-MLP vs its plain version: products summed in another order
 FUSED_TOL = dict(rtol=1e-4, atol=1e-4)       # pooled output, batch means
 FUSED_VAR_TOL = dict(rtol=1e-4, atol=1e-5)   # batch variances
@@ -3751,6 +3768,167 @@ def student_fall_phase(dev, card):
     return report
 
 
+# -- phase 23: 3DETR-m's radius-masked attention ------------------------------
+
+# the kernel against its plain version, over the plain version's largest
+# |value| (tests/test_torch_port_three_detr.py's bound): the kernel sums each
+# logit's 64 products one FMA at a time and takes the softmax online, the
+# plain version sums in the GEMM's order and normalises once
+RADIUS_REL = 2e-5
+# FPS picks and ball-query indices of the kernel-path forward against the
+# plain path's: bitwise (they depend on xyz only)
+THREE_DETR_INDEX_KEYS = ("pre_enc_inds", "interim_inds", "interim_ball_inds",
+                         "enc_inds", "query_inds")
+
+
+def record_radius_calls(ops, records):
+    """Route the model's ops.radius_attention through a recorder that keeps
+    each call's inputs and calls the real op (whose counter still counts);
+    returns a function that puts the real op back."""
+    real = ops.radius_attention
+
+    def recorder(q, k, v, xyz, radius):
+        records.append((q, k, v, xyz, radius))
+        return real(q, k, v, xyz, radius)
+
+    ops.radius_attention = recorder
+
+    def restore():
+        ops.radius_attention = real
+    return restore
+
+
+def pairwise_outputs(fn, tokens) -> list:
+    """The shapes of the op outputs, while `fn` ran, that end in (N, N) for
+    a token count N in `tokens`: the logits, softmax or mask of a dense
+    attention over the tokens."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = []
+
+    class Pairwise(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else [out]):
+                shape = tuple(getattr(t, "shape", ()))
+                if len(shape) >= 2 and shape[-1] == shape[-2] in tokens:
+                    seen.append(shape)
+            return out
+
+    with Pairwise():
+        fn()
+    return seen
+
+
+def radius_attention_phase(dev, pc, card):
+    """Phase 23: 3DETR-m's eval forward (ThreeDETRConfig(fused_sa=True), the
+    benchmark cell's configuration) on phase 3's clouds, and the
+    radius-attention kernel against its plain version on that forward's
+    own three calls."""
+    import torch
+    from omni_pq_torch import ops
+    from omni_pq_torch.config import ThreeDETRConfig
+    from omni_pq_torch.infer import build_model, eval_forward
+    from omni_pq_torch.ops.radius_attention import keep_mask
+    from omni_pq_torch.ops.reference import radius_sq
+    cfg = ThreeDETRConfig(fused_sa=True)
+    model = build_model(cfg, dev, seed=SEED)
+    eval_forward(model, pc)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    counted = {"fps": ops.fps, "ball_query_group": ops.ball_query_group,
+               "fused_mlp_pool": ops.fused_mlp_pool,
+               "radius_attention": ops.radius_attention}
+    reset_launch_counts(counted)
+    ep = eval_forward(model, pc)
+    torch.cuda.synchronize()
+    launches = fused_launch_counts(counted)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[3detr] launches in one forward: {launches}")
+    want = {"fps": 3, "ball_query_group": 2, "fused_mlp_pool": 1,
+            "radius_attention": cfg.enc_nlayers}
+    check(launches == want, f"3DETR-m forward: launches {launches}, "
+          f"expected {want}")
+    for k, v in ep.items():
+        check(not v.dtype.is_floating_point or bool(torch.isfinite(v).all()),
+              f"3DETR-m {k} has non-finite values")
+    # no op returns a (.., N, N) tensor over the encoder's tokens: no
+    # logits, softmax or mask of a dense attention
+    tokens = (cfg.preenc_npoints, cfg.preenc_npoints // 2)
+    pairwise = pairwise_outputs(lambda: eval_forward(model, pc), tokens)
+    print(f"[3detr] op outputs ending in (N, N) for N in {tokens}: "
+          f"{pairwise or 'none'}")
+    check(not pairwise, f"3DETR-m forward: ops returned pairwise tensors "
+          f"{pairwise[:4]}")
+    with ops.plain_versions():
+        ep_plain = eval_forward(model, pc)
+    torch.cuda.synchronize()
+    for k in THREE_DETR_INDEX_KEYS:
+        check(torch.equal(ep[k], ep_plain[k]),
+              f"3DETR-m {k}: the kernel path's indices differ from the "
+              "plain path's")
+    gaps = {k: float((ep[k] - ep_plain[k]).abs().max())
+            / max(float(ep_plain[k].abs().max()), 1e-30)
+            for k in ep if ep[k].dtype.is_floating_point}
+    worst = max(gaps.items(), key=lambda kv: kv[1])
+    print(f"[3detr] indices bitwise the plain path's; largest float gap "
+          f"over the key's largest value {worst[1]:.3e} ({worst[0]}; "
+          f"enc_features {gaps['enc_features']:.3e})")
+
+    records = []
+    restore = record_radius_calls(ops, records)
+    try:
+        eval_forward(model, pc)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    check(len(records) == cfg.enc_nlayers, f"recorded {len(records)} "
+          f"radius_attention calls, expected {cfg.enc_nlayers}")
+    rows = []
+    for layer, args in enumerate(records):
+        q, k, v, xyz, radius = args
+        B, H, N, hd = q.shape
+        got = ops.radius_attention(*args)
+        plain = ops.radius_attention_plain(*args)
+        err = float((got - plain).abs().max())
+        rel = err / float(plain.abs().max())
+        check(rel < RADIUS_REL, f"radius_attention layer {layer}: "
+              f"{rel:.3e} of the largest value from its plain version "
+              f"(bound {RADIUS_REL})")
+        kept = float(keep_mask(xyz, radius_sq(radius)).float().mean())
+        # the bytes floor: q, k, v and xyz read once, the output written once
+        bnd, by = bound_ms(4 * B * N * (3 * H * hd + 3 + H * hd), 0)
+        rows.append({
+            "call": f"encoder{layer}",
+            "shape": f"B{B} H{H} N{N} hd{hd} r{radius}",
+            "max_abs_err": err, "rel_err": rel, "kept_share": kept,
+            "ms": time_ms(lambda: ops.radius_attention(*args), reps=10),
+            "device_ms": device_ms(lambda: ops.radius_attention(*args),
+                                   KERNEL_NAMES["radius_attention"]),
+            "plain_ms": time_ms(lambda: ops.radius_attention_plain(*args),
+                                reps=2),
+            "bound_ms": bnd, "bound_by": by})
+    del records
+    for row in rows:
+        check(row["device_ms"] is not None, f"radius_attention "
+              f"{row['call']}: the profiler recorded none of its kernels: "
+              "device time not measured")
+        print(f"[time] radius_attention {row['call']:9s} {row['shape']:28s}"
+              f" kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f})"
+              f"  plain {row['plain_ms']:.3f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})  rel err "
+              f"{row['rel_err']:.2e}  kept pairs {row['kept_share']:.4%}  "
+              f"[{card}]")
+    fwd_ms = wall_ms_per_call(lambda: eval_forward(model, pc), reps=5)
+    print(f"[3detr] forward B={pc.shape[0]}: {fwd_ms:.3f} ms/batch = "
+          f"{pc.shape[0] / fwd_ms * 1e3:.2f} scenes/s, peak memory "
+          f"{peak / 2**30:.2f} GiB [{card}]")
+    del model, ep, ep_plain
+    torch.cuda.empty_cache()
+    return dict(launches=launches, pairwise_outputs=len(pairwise),
+                float_gaps=gaps, forward_ms=fwd_ms,
+                peak_mem_bytes=peak), rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4099,6 +4277,10 @@ def main() -> int:
     # -- 22. the student-fall diagnosis script: a trunk, its saved state
     # reloaded, two branches from it, a few steps each at full width
     report["student_fall"] = student_fall_phase(dev, card)
+
+    # -- 23. 3DETR-m's eval forward and its radius-attention kernel
+    report["three_detr"], rows["radius_attention"] = radius_attention_phase(
+        dev, pc, card)
     report["kernel_rows"] = rows
     # a time below its bound means a miscounted bound or a broken timer
     for kname, krows in rows.items():
@@ -4210,6 +4392,22 @@ def main() -> int:
         "plain_ms": sum(r["plain_ms"] for r in frows11),
         "bound_ms": sum(r["bound_ms"] for r in frows11),
         "bound_by": max(frows11, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": None, "matched": True})
+    # 3DETR-m's masked encoder (phase 23): one launch an encoder layer;
+    # times and bounds are that forward's three calls. The JAX package has
+    # no 3DETR, so the kernel replaces no TPU kernel
+    mrows = rows["radius_attention"]
+    summary.append({
+        "name": "radius_attention", "route": "cuda",
+        "source": "omni_pq_torch/csrc/radius_attention.cu",
+        "replaces": None,
+        "launches": report["three_detr"]["launches"]["radius_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in mrows),
+        "ms": sum(r["ms"] for r in mrows),
+        "device_ms": sum(r["device_ms"] for r in mrows),
+        "plain_ms": sum(r["plain_ms"] for r in mrows),
+        "bound_ms": sum(r["bound_ms"] for r in mrows),
+        "bound_by": max(mrows, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None, "matched": True})
     report["kernels"] = summary
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

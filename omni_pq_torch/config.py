@@ -17,6 +17,7 @@ capped at single precision. No CLI offers it, as none of the JAX CLIs does.
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import numpy as np
 
@@ -135,6 +136,54 @@ class ModelConfig:
     # through the fused kernel (ops/fused_mlp.py) wherever its widths pass
     # `ops.fused_mlp.supports`; the other layers keep the unfused chain.
     # Same meaning and default as the JAX package's flag.
+    fused_sa: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ThreeDETRConfig:
+    """3DETR-m, the masked-encoder 3DETR of Misra, Girdhar and Joulin, "An
+    End-to-End Transformer Model for 3D Object Detection" (ICCV 2021), at
+    the published ScanNet defaults (github.com/facebookresearch/3detr:
+    main.py's arguments, scripts/scannet_masked_ep1080.sh, build_preencoder
+    and build_encoder of models/model_3detr.py): no colour channels, 18
+    classes. Eval only (`models.three_detr.ThreeDETR`); the published
+    dropouts (0.1 encoder and decoder, 0.3 heads) do nothing in eval and
+    are not held. What the port holds at one value is not a field: one
+    angle bin (`ThreeDETR.NUM_ANGLE_BIN`), the decoder at the encoder's
+    width (`enc_dim`), and float32 (`compute_dtype`, which the
+    radius-attention kernel asks for)."""
+    compute_dtype: ClassVar[str] = "float32"
+    num_class: int = 18            # semantic classes; the head adds background
+    input_feature_dim: int = 0     # no colour
+    num_points: int = 40000
+    # pre-encoder: PointnetSAModuleVotes, MLP 3 -> 64 -> 128 -> enc_dim
+    preenc_npoints: int = 2048
+    preenc_radius: float = 0.2
+    preenc_nsample: int = 64
+    preenc_mlp: tuple = (64, 128)
+    # masked encoder: pre-norm layers, ReLU FFN, no position embedding
+    enc_dim: int = 256
+    enc_nhead: int = 4
+    enc_ffn_dim: int = 128
+    enc_nlayers: int = 3
+    # a pair of tokens attends where its distance is below its layer's
+    # radius: the published [0.4**2, 0.8**2, 1.2**2], compared with
+    # torch.cdist's (unsquared) distance, so 0.16, 0.64 and 1.44 m
+    masking_radius: tuple = (0.16, 0.64, 1.44)
+    # the SA layer after encoder layer 0: preenc_npoints // 2 centres,
+    # MLP enc_dim + 3 -> 256 -> 256 -> enc_dim
+    interim_radius: float = 0.4
+    interim_nsample: int = 32
+    interim_mlp: tuple = (256, 256)
+    # decoder: pre-norm layers over FPS queries with Fourier embeddings, at
+    # enc_dim
+    dec_nhead: int = 4
+    dec_ffn_dim: int = 256
+    dec_nlayers: int = 8
+    num_queries: int = 256
+    gauss_scale: float = 1.0
+    # route the SA layers whose widths pass `ops.fused_mlp.supports` (the
+    # interim layer; the pre-encoder's 64 does not) through the fused kernel
     fused_sa: bool = False
 
 

@@ -17,11 +17,12 @@ from typing import Dict, Mapping
 
 import torch
 
-from .config import DatasetConfig, ModelConfig
+from .config import DatasetConfig, ModelConfig, ThreeDETRConfig
 from .evals import (QuadAPCalculator, parse_quad_groundtruths,
                     parse_quad_predictions)
 from .models import MultiHeadAttention, PQTransformer
 from .models.pointnet2 import Conv, acc_dtype, torch_dtype
+from .models.three_detr import FourierEmbedding, ThreeDETR
 from .utils.trace import span
 
 # the eval decode settings of the JAX package's cli/train.py::evaluate
@@ -59,7 +60,8 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
 @torch.no_grad()
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Random weights from `generator`: every 1x1 conv / linear / attention
-    projection from flax's lecun_normal (`lecun_normal_`), biases 0.
+    projection from flax's lecun_normal (`lecun_normal_`), biases 0; a
+    Fourier embedding's Gaussian matrix as the published 3DETR draws it.
     BatchNorm and LayerNorm keep their constructor values (scale 1, bias 0,
     running stats 0/1)."""
     for m in model.modules():
@@ -70,16 +72,26 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, MultiHeadAttention):
             lecun_normal_(m.in_proj_weight, generator)
             m.in_proj_bias.zero_()
+        elif isinstance(m, FourierEmbedding):
+            m.reset(generator)
+
+
+def _model(cfg) -> torch.nn.Module:
+    """The model a configuration describes: a `ThreeDETR` for a
+    `ThreeDETRConfig`, else a `PQTransformer`."""
+    return ThreeDETR(cfg) if isinstance(cfg, ThreeDETRConfig) else (
+        PQTransformer(cfg))
 
 
 def build_model(cfg: ModelConfig = ModelConfig(), device="cuda",
                 seed: int = 0) -> PQTransformer:
-    """An eval-mode PQTransformer at `cfg` (its compute_dtype included) with
-    random float32 weights made on the CPU from `seed` (the same weights on
-    every device and in every compute dtype; float64 parameters holding them
-    under float64), moved to `device`."""
+    """An eval-mode PQTransformer at `cfg` (its compute_dtype included), or
+    a ThreeDETR for a `ThreeDETRConfig`, with random float32 weights made on
+    the CPU from `seed` (the same weights on every device and in every
+    compute dtype; float64 parameters holding them under float64), moved to
+    `device`."""
     device = resolve_device(device)
-    model = PQTransformer(cfg)
+    model = _model(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     if cfg.compute_dtype == "float64":
         model.double()
@@ -88,16 +100,17 @@ def build_model(cfg: ModelConfig = ModelConfig(), device="cuda",
 
 def load_model(state_dict: Mapping[str, torch.Tensor],
                cfg: ModelConfig = ModelConfig(), device="cuda") -> PQTransformer:
-    """An eval-mode PQTransformer at `cfg` (its compute_dtype included)
-    holding a reference-layout state_dict (a DDP 'module.' prefix is
-    stripped), on `device`. Its parameters take the state_dict's type: a
-    float64 one (a float64 flax tree, `interop.flax_to_state_dict`) makes a
-    float64 model, with no cast to float32 on the way."""
+    """An eval-mode PQTransformer at `cfg` (its compute_dtype included), or
+    a ThreeDETR for a `ThreeDETRConfig`, holding a reference-layout
+    state_dict (a DDP 'module.' prefix is stripped), on `device`. Its
+    parameters take the state_dict's type: a float64 one (a float64 flax
+    tree, `interop.flax_to_state_dict`) makes a float64 model, with no cast
+    to float32 on the way."""
     device = resolve_device(device)
     if any(k.startswith("module.") for k in state_dict):
         state_dict = {k.removeprefix("module."): v
                       for k, v in state_dict.items()}
-    model = PQTransformer(cfg)
+    model = _model(cfg)
     if any(v.dtype == torch.float64 for v in state_dict.values()):
         model.double()
     model.load_state_dict(state_dict, strict=True)

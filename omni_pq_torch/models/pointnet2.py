@@ -297,12 +297,14 @@ class SAModuleVotes(nn.Module):
     def _mlp_pool(self, grouped: torch.Tensor) -> torch.Tensor:
         return self.mlp_module(grouped).amax(dim=2)
 
-    def forward(self, xyz: torch.Tensor,
-                features: Optional[torch.Tensor] = None,
-                inds: Optional[torch.Tensor] = None):
-        """xyz (B,N,3), features (B,N,C) -> new_xyz (B,npoint,3),
-        new_features (B,npoint,C_out), inds (B,npoint) int32. `inds`, when
-        given, are the centres' indices into xyz in place of the FPS."""
+    def group(self, xyz: torch.Tensor,
+              features: Optional[torch.Tensor] = None,
+              inds: Optional[torch.Tensor] = None):
+        """The centres and their groups: xyz (B,N,3), features (B,N,C) ->
+        new_xyz (B,npoint,3), inds (B,npoint) int32, the ball query's idx
+        (B,npoint,nsample), the MLP's input (B,npoint,nsample,3+C). `inds`,
+        when given, are the centres' indices into xyz in place of the
+        FPS."""
         if inds is None:
             inds = ops.fps(xyz, self.npoint)
         new_xyz = ops.gather_points(xyz, inds)
@@ -310,17 +312,30 @@ class SAModuleVotes(nn.Module):
                                                 xyz, new_xyz)
         if self.normalize_xyz:
             grouped_xyz = grouped_xyz / self.radius
-        grouped = _grouped_input(grouped_xyz, features, idx, True)
+        return new_xyz, inds, idx, _grouped_input(grouped_xyz, features, idx,
+                                                  True)
+
+    def pool(self, grouped: torch.Tensor) -> torch.Tensor:
+        """The shared MLP and the max over each group: (B,npoint,nsample,
+        3+C) -> (B,npoint,C_out), fused, recomputed in the backward, or
+        plain."""
         if self.fused:
-            return new_xyz, self._fused_mlp_pool(grouped), inds
+            return self._fused_mlp_pool(grouped)
         if self.remat and torch.is_grad_enabled():
             dp = parallel.current()
-            pooled = checkpoint(
+            return checkpoint(
                 self._mlp_pool, grouped, use_reentrant=False,
                 preserve_rng_state=False,
                 context_fn=lambda: (contextlib.nullcontext(), _recompute(dp)))
-            return new_xyz, pooled, inds
-        return new_xyz, self._mlp_pool(grouped), inds
+        return self._mlp_pool(grouped)
+
+    def forward(self, xyz: torch.Tensor,
+                features: Optional[torch.Tensor] = None,
+                inds: Optional[torch.Tensor] = None):
+        """xyz (B,N,3), features (B,N,C) -> new_xyz (B,npoint,3),
+        new_features (B,npoint,C_out), inds (B,npoint) int32 (`group`)."""
+        new_xyz, inds, _, grouped = self.group(xyz, features, inds)
+        return new_xyz, self.pool(grouped), inds
 
 
 class SAModuleMSG(nn.Module):

@@ -52,6 +52,11 @@ _SIGNATURES = {
                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]),
+    "radius_attention": ("radius_attention_launch",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_void_p]),
 }
 # the other launchers of a library, {C function: argtypes}; each returns
 # the launch's cudaError_t too
